@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import os
 import sys
+import zlib
 
 import numpy as np
 
@@ -106,7 +107,8 @@ def synthesize(name: str, size: int, *, seed: int = DEFAULT_SEED) -> bytes:
         generator = _CORPORA[name]
     except KeyError:
         raise ValueError(f"Unknown synthetic corpus {name!r}; choose from {corpus_names()}") from None
-    return generator(size, np.random.default_rng([seed, hash(name) & 0x7FFFFFFF]))
+    # crc32, not hash(): str hashes differ between processes.
+    return generator(size, np.random.default_rng([seed, zlib.crc32(name.encode())]))
 
 
 def _register(name):
@@ -127,22 +129,38 @@ def _zipf_vocabulary(rng: np.random.Generator, vocab_size: int, alphabet: np.nda
     return words, probs
 
 
+def _ragged_bytes(table: np.ndarray, lengths: np.ndarray, entries: np.ndarray) -> bytes:
+    """Concatenate variable-length byte strings: entry ``e`` is
+    ``table[e, :lengths[e]]``; emits ``entries`` in order."""
+    rows = table[entries]
+    keep = np.arange(table.shape[1])[None, :] < lengths[entries][:, None]
+    return rows[keep].tobytes()
+
+
+def _byte_table(strings: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    lengths = np.array([len(s) for s in strings], np.int64)
+    table = np.zeros((len(strings), max(int(lengths.max()), 1)), np.uint8)
+    for i, s in enumerate(strings):
+        table[i, : len(s)] = np.frombuffer(s, np.uint8)
+    return table, lengths
+
+
 def _compose_words(size: int, rng, words, probs, separator: bytes = b" ", line_words: int | None = None) -> bytes:
+    """Zipf-drawn words joined by ``separator``, a newline after every
+    ``line_words`` words; built in vectorized batches of words."""
+    # Entries: the vocabulary with the separator appended, then with "\n".
+    table, lengths = _byte_table([w + separator for w in words] + [w + b"\n" for w in words])
+    mean = float(np.dot(probs, lengths[: len(words)]))
     out = bytearray()
-    batch = 65536
-    since_newline = 0
+    batch = max(1 << 16, min(1 << 21, int(size / mean) + 1))
+    drawn = 0
     while len(out) < size:
         idx = rng.choice(len(words), size=batch, p=probs)
-        for i in idx:
-            out += words[i]
-            since_newline += 1
-            if line_words and since_newline >= line_words:
-                out += b"\n"
-                since_newline = 0
-            else:
-                out += separator
-            if len(out) >= size:
-                break
+        if line_words:
+            ends_line = (np.arange(drawn, drawn + batch) + 1) % line_words == 0
+            idx = np.where(ends_line, idx + len(words), idx)
+        drawn += batch
+        out += _ragged_bytes(table, lengths, idx)
     return bytes(out[:size])
 
 
@@ -193,7 +211,9 @@ def _multilingual(size: int, rng) -> bytes:
 
     Stands in for the reference's per-language Wikipedia/UDHR corpora used by
     normalization and tokenization suites; every generated string is valid
-    UTF-8 with multi-byte sequences of widths 1-3.
+    UTF-8 with multi-byte sequences of widths 1-3. Text comes in runs of 200
+    words from one script; words are 1-8 characters, followed by a newline
+    with probability 1/12 and a space otherwise.
     """
     pools = [
         _range_alphabet((0x61, 0x7B)),  # a-z
@@ -204,16 +224,28 @@ def _multilingual(size: int, rng) -> bytes:
         _range_alphabet((0x4E00, 0x4E00 + 256)),  # CJK
         _range_alphabet((0x627, 0x64B)),  # Arabic
     ]
+    chars = [c for pool in pools for c in pool]
+    table, lengths = _byte_table([c.encode("utf-8") for c in chars] + [b" ", b"\n"])
+    space, newline = len(chars), len(chars) + 1
+    pool_size = np.array([len(p) for p in pools], np.int64)
+    pool_base = np.concatenate([[0], np.cumsum(pool_size)[:-1]])
+    words_per_run = 200
     out = bytearray()
     while len(out) < size:
-        pool = pools[int(rng.integers(0, len(pools)))]
-        for _ in range(200):
-            word_len = int(rng.integers(1, 9))
-            chars = rng.integers(0, len(pool), word_len)
-            out += "".join(pool[c] for c in chars).encode("utf-8")
-            out += b"\n" if rng.integers(0, 12) == 0 else b" "
-            if len(out) >= size:
-                break
+        runs = max(1, min(4096, size // (words_per_run * 10)))
+        pool_of_word = np.repeat(rng.integers(0, len(pools), runs), words_per_run)
+        word_len = rng.integers(1, 9, pool_of_word.shape[0])
+        pool_of_char = np.repeat(pool_of_word, word_len)
+        local = (rng.random(pool_of_char.shape[0]) * pool_size[pool_of_char]).astype(np.int64)
+        seps = np.where(rng.integers(0, 12, word_len.shape[0]) == 0, newline, space)
+        # Each word is its characters followed by one separator entry.
+        ends = np.cumsum(word_len + 1) - 1
+        entries = np.empty(int(ends[-1]) + 1, np.int64)
+        is_sep = np.zeros(entries.shape[0], bool)
+        is_sep[ends] = True
+        entries[is_sep] = seps
+        entries[~is_sep] = pool_base[pool_of_char] + local
+        out += _ragged_bytes(table, lengths, entries)
     # Trim to a UTF-8 boundary: drop trailing continuation bytes.
     end = size
     while end > 0 and (out[end - 1] & 0xC0) == 0x80:

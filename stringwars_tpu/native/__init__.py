@@ -1,8 +1,9 @@
 """Native host runtime (C++ via ctypes) — build-on-first-use.
 
-Compiles ``swtpu_native.cpp`` into a cached shared object with g++ -O3 and
-exposes the C ABI through ctypes + numpy buffers. Falls back to ``None``
-(callers keep a pure-Python path) when no compiler is available.
+Compiles ``swtpu_native.cpp`` with g++ -O3 into ``build/`` beside it (a
+directory git ignores) and exposes the C ABI through ctypes + numpy
+buffers. Falls back to ``None`` (callers keep a pure-Python path) when no
+compiler is available.
 """
 
 from __future__ import annotations
@@ -16,21 +17,25 @@ import numpy as np
 
 _DIR = os.path.dirname(__file__)
 _SRC = os.path.join(_DIR, "swtpu_native.cpp")
-_CACHE = os.path.expanduser("~/.cache/swtpu-native")
+_BUILD = os.path.join(_DIR, "build")
 
 
 def _build() -> str | None:
-    os.makedirs(_CACHE, exist_ok=True)
+    os.makedirs(_BUILD, exist_ok=True)
     src_mtime = os.path.getmtime(_SRC)
-    so_path = os.path.join(_CACHE, "libswtpu_native.so")
+    so_path = os.path.join(_BUILD, "libswtpu_native.so")
     if os.path.exists(so_path) and os.path.getmtime(so_path) >= src_mtime:
         return so_path
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", so_path]
+    # Build under a per-process name and rename into place, so concurrent
+    # first uses (test workers) never load a half-written library.
+    tmp_path = f"{so_path}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp_path]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.CalledProcessError, FileNotFoundError, subprocess.TimeoutExpired) as e:
         print(f"swtpu native build failed ({e}); using pure-Python fallbacks", file=sys.stderr)
         return None
+    os.replace(tmp_path, so_path)
     return so_path
 
 

@@ -1,8 +1,8 @@
-// swtpu native runtime: host-side hot paths that don't belong on the TPU.
+// swtpu native runtime: host-side hot paths that don't belong on the device.
 //
 // The reference keeps its runtime in native code (stringtape, forkunion,
 // automaton builders inside aho-corasick/stringzilla — SURVEY.md §2.3);
-// this library is the TPU build's equivalent for the host side:
+// this library is this build's equivalent for the host side:
 //   - corpus tokenization scans (lines/words span extraction at memory
 //     bandwidth, feeding Tape construction),
 //   - Aho-Corasick automaton construction (goto/fail BFS compressed into a

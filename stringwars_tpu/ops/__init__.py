@@ -2,7 +2,7 @@
 
 Every kernel follows the same discipline:
 - a pure-``jnp`` reference implementation (conformance oracle + CPU fallback),
-- a TPU-optimized path (fused XLA or a Pallas kernel) selected by default,
+- a device path (fused XLA, or one Pallas kernel for the GPU) selected by default,
 - exactness goldens against public specs (xxhash vectors, Unicode UCD,
   textbook DP) in ``tests/``.
 """

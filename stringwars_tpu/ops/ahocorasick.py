@@ -2,7 +2,7 @@
 
 The reference benchmarks aho-corasick DFAs for byteset/multi-pattern scans
 (``find/bench.rs:226-348``, pyahocorasick ``find/bench.py:118-123``).
-BASELINE.json names the TPU design explicitly: host-built goto/fail
+BASELINE.json names the design explicitly: host-built goto/fail
 transition table, replicated to the device, run as an int32 gather chain.
 
 Construction runs in the native C++ runtime (``native.ac_build``: trie +
@@ -23,18 +23,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from stringwars_tpu.native import ac_build, ac_count_host
 
-# 32 sublanes = 4096 parallel chunk streams: the per-column transition
-# chain is serially dependent, so wider state planes are the ILP lever
-# (8 sublanes measured latency-bound at 3.3 GB/s; 32 reach deeper into
-# the VPU pipeline at the same ops/byte).
-_AC_SUB, _AC_LANES = 32, 128
-_AC_CHUNKS = _AC_SUB * _AC_LANES  # 4096 chunks ride the vector lanes
-_AC_KSTEP = 128  # byte columns per grid step (block = KSTEP * 16 KB VMEM)
+# Default chunk streams for ``stage_rows``: enough parallel DFA walks to
+# fill the device, each a short scan.
+_AC_STREAMS = 1 << 18
 
 
 class Automaton:
@@ -54,10 +48,6 @@ class Automaton:
         self.states = delta.shape[0]
         self.delta_flat = jnp.asarray(delta.reshape(-1))
         self.out_count = jnp.asarray(out_count)
-        # MXU-path staging: transition table transposed to [256, S] f32 and
-        # the per-state output counts as f32 (see _ac_scan_mxu).
-        self.delta_t = jnp.asarray(delta.T.astype(np.float32))
-        self.out_count_f = jnp.asarray(out_count.astype(np.float32))
 
     def count_host(self, data: np.ndarray) -> int:
         """Sequential native scan (oracle / baseline variant)."""
@@ -67,15 +57,19 @@ class Automaton:
 
 @functools.partial(jax.jit, static_argnames=("n", "chunk"))
 def _ac_scan(delta_flat, out_count, rows, gpos0, n: int, chunk: int):
-    """rows: [C, overlap + chunk] bytes; gpos0: [C] global pos of row start."""
+    """rows: [C, overlap + chunk] bytes; gpos0: [C] global pos of row start.
+
+    The scan walks byte columns of the transposed rows, so each step reads
+    one contiguous [C] slice and gathers C transitions from the table."""
     c_count, row_w = rows.shape
     overlap = row_w - chunk
     states = jnp.zeros((c_count,), jnp.int32)
     counts = jnp.zeros((c_count,), jnp.int32)
 
-    def body(carry, p):
+    def body(carry, xs):
         states, counts = carry
-        byte = rows[:, p].astype(jnp.int32)
+        col, p = xs
+        byte = col.astype(jnp.int32)
         gpos = gpos0 + p
         valid = (gpos >= 0) & (gpos < n)
         nxt = jnp.take(delta_flat, states * 256 + byte)
@@ -84,345 +78,26 @@ def _ac_scan(delta_flat, out_count, rows, gpos0, n: int, chunk: int):
         counts = counts + jnp.where(valid & (p >= overlap), hits, 0)
         return (states, counts), None
 
-    (states, counts), _ = jax.lax.scan(body, (states, counts), jnp.arange(row_w))
+    (states, counts), _ = jax.lax.scan(
+        body, (states, counts), (rows.T, jnp.arange(row_w, dtype=jnp.int32))
+    )
     return jnp.sum(counts, dtype=jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("n", "chunk"))
-def _ac_scan_mxu(delta_t, out_count_f, rows, gpos0, n: int, chunk: int):
-    """Gather-free DFA scan: each step is one MXU matmul.
-
-    TPU gathers serialize (the ``_ac_scan`` path runs ~0.03 GB/s); the MXU
-    doesn't. ``delta[state, byte]`` is bilinear in (onehot(state),
-    onehot(byte)), so per position: ``A = onehot(byte) @ delta.T`` on the
-    MXU gives every lane's candidate next-state for *its own* byte per
-    current-state column, and the actual next state / output count fall out
-    of elementwise one-hot selects on the VPU. All values stay < 2^24 so
-    f32 accumulation is exact.
-
-    ``delta_t``: f32 [256, S_pad]; ``out_count_f``: f32 [S_pad].
-    """
-    c_count, row_w = rows.shape
-    overlap = row_w - chunk
-    s_pad = delta_t.shape[1]
-    s_ids = jnp.arange(s_pad, dtype=jnp.int32)[None, :]
-    b_ids = jnp.arange(256, dtype=jnp.int32)[None, :]
-    states = jnp.zeros((c_count,), jnp.int32)
-    counts = jnp.zeros((c_count,), jnp.float32)
-
-    def body(carry, p):
-        states, counts = carry
-        byte = rows[:, p].astype(jnp.int32)
-        oh_b = (byte[:, None] == b_ids).astype(jnp.float32)  # [C, 256]
-        # HIGHEST: one-hot rows select exact table entries; default-precision
-        # bf16 passes would round state ids above 256.
-        cand = jax.lax.dot(oh_b, delta_t, precision=jax.lax.Precision.HIGHEST)
-        oh_s = (states[:, None] == s_ids).astype(jnp.float32)
-        nxt = jnp.sum(cand * oh_s, axis=1).astype(jnp.int32)
-        gpos = gpos0 + p
-        valid = (gpos >= 0) & (gpos < n)
-        states = jnp.where(valid, nxt, states)
-        oh_n = (states[:, None] == s_ids).astype(jnp.float32)
-        hits = jnp.sum(oh_n * out_count_f[None, :], axis=1)
-        counts = counts + jnp.where(valid & (p >= overlap), hits, 0.0)
-        return (states, counts), None
-
-    (states, counts), _ = jax.lax.scan(body, (states, counts), jnp.arange(row_w))
-    # Per-row counts stay exact in f32 (< 2^24 per chunk) but the grand total
-    # over a large corpus can exceed 2^24 — cast per-row BEFORE reducing.
-    return jnp.sum(counts.astype(jnp.int32), dtype=jnp.int32)
-
-
-# ---------------------------------------------------------------------------
-# Pallas fast path: the DFA transition delta[state, byte] over the FLAT key
-# ``state * 256 + byte`` is a step function of the key (ops/rulemap trick),
-# so one scan step costs 2 ops for the key plus 3 VPU ops per step
-# boundary — no gathers, no per-position matmul, and the whole column walk
-# runs inside one kernel with the state plane resident in VMEM.
-# ---------------------------------------------------------------------------
-
-def _ac_kernel(n_rules: int, n_oc: int, n_strips: int, overlap: int):
-    def kernel(
-        ks_ref, kd_ref, os_ref, od_ref, meta_ref,
-        bytes_ref, gpos0_ref, out_ref, state_ref, count_ref,
-    ):
-        strip = pl.program_id(0)
-
-        @pl.when(strip == 0)
-        def _():
-            state_ref[...] = jnp.zeros((_AC_SUB, _AC_LANES), jnp.int32)
-            count_ref[...] = jnp.zeros((_AC_SUB, _AC_LANES), jnp.int32)
-
-        n_glob = meta_ref[0]
-        limit = meta_ref[1]  # overlap + chunk: own positions end here
-        gpos0 = gpos0_ref[...]
-
-        def col(k, _):
-            byte = bytes_ref[k]
-            p = strip * _AC_KSTEP + k
-            state = state_ref[...]
-            key = state * 256 + byte
-
-            def rule(r, acc):
-                return acc + jnp.where(key >= ks_ref[r], kd_ref[r], 0)
-
-            nxt = jax.lax.fori_loop(0, n_rules, rule, jnp.zeros_like(key))
-            gpos = gpos0 + p
-            valid = (gpos >= 0) & (gpos < n_glob)
-            state = jnp.where(valid, nxt, state)
-            state_ref[...] = state
-
-            def oc(r, acc):
-                return acc + jnp.where(state >= os_ref[r], od_ref[r], 0)
-
-            hits = jax.lax.fori_loop(0, n_oc, oc, jnp.zeros_like(state))
-            count_ref[...] = count_ref[...] + jnp.where(
-                valid & (p >= overlap) & (p < limit), hits, 0
-            )
-            return ()
-
-        jax.lax.fori_loop(0, _AC_KSTEP, col, ())
-
-        @pl.when(strip == n_strips - 1)
-        def _():
-            out_ref[...] = count_ref[...]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("n_rules", "n_oc", "overlap", "interpret"))
-def _ac_scan_pallas(
-    key_starts, key_deltas, oc_starts, oc_deltas, meta, cols, gpos0,
-    n_rules: int, n_oc: int, overlap: int, interpret: bool = False,
-):
-    """cols: int32 [P, 8, 128] byte columns (P multiple of KSTEP)."""
-    n_strips = cols.shape[0] // _AC_KSTEP
-    out = pl.pallas_call(
-        _ac_kernel(n_rules, n_oc, n_strips, overlap),
-        grid=(n_strips,),
-        in_specs=[
-            *[pl.BlockSpec(memory_space=pltpu.SMEM) for _ in range(5)],
-            pl.BlockSpec((_AC_KSTEP, _AC_SUB, _AC_LANES), lambda i: (i, 0, 0)),
-            pl.BlockSpec((_AC_SUB, _AC_LANES), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((_AC_SUB, _AC_LANES), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((_AC_SUB, _AC_LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((_AC_SUB, _AC_LANES), jnp.int32),
-            pltpu.VMEM((_AC_SUB, _AC_LANES), jnp.int32),
-        ],
-        interpret=interpret,
-    )(key_starts, key_deltas, oc_starts, oc_deltas, meta, cols, gpos0)
-    return jnp.sum(out, dtype=jnp.int64).astype(jnp.int32)
-
-
-def _ac_kernel_lut(mode: str, n_pm: int, n_strips: int, overlap: int):
-    """DFA scan with lane-gather LUT transitions (ops/lut.py): the flat
-    ``state * 256 + byte`` key gathers the next state directly (small
-    tables) or through a deduplicated page map (``paged_lut_tables``);
-    per-state output counts are a one-window gather. For the 4-word
-    English dictionary this is ~16 vreg-ops/byte vs the 71-rule walk's
-    ~220 (measured 1.54 -> walk vs LUT below)."""
-    from stringwars_tpu.ops.lut import lane_lut
-
-    def kernel(*refs):
-        if mode == "paged":
-            pm_ref, pg_ref, oc_ref, meta_ref, bytes_ref, gpos0_ref = refs[:6]
-        else:
-            dt_ref, oc_ref, meta_ref, bytes_ref, gpos0_ref = refs[:5]
-        out_ref, state_ref, count_ref = refs[-3:]
-        strip = pl.program_id(0)
-
-        @pl.when(strip == 0)
-        def _():
-            state_ref[...] = jnp.zeros((_AC_SUB, _AC_LANES), jnp.int32)
-            count_ref[...] = jnp.zeros((_AC_SUB, _AC_LANES), jnp.int32)
-
-        n_glob = meta_ref[0]
-        limit = meta_ref[1]
-        gpos0 = gpos0_ref[...]
-
-        def col(k, _):
-            byte = bytes_ref[k]
-            p = strip * _AC_KSTEP + k
-            state = state_ref[...]
-            key = state * 256 + byte
-            if mode == "paged":
-                pid = lane_lut(pm_ref[...], jnp.clip(key >> 7, 0, n_pm - 1))
-                nxt = lane_lut(pg_ref[...], (pid << 7) | (key & 127))
-            else:
-                nxt = lane_lut(dt_ref[...], key)
-            gpos = gpos0 + p
-            valid = (gpos >= 0) & (gpos < n_glob)
-            state = jnp.where(valid, nxt, state)
-            state_ref[...] = state
-            hits = lane_lut(oc_ref[...], state)
-            count_ref[...] = count_ref[...] + jnp.where(
-                valid & (p >= overlap) & (p < limit), hits, 0
-            )
-            return ()
-
-        jax.lax.fori_loop(0, _AC_KSTEP, col, ())
-
-        @pl.when(strip == n_strips - 1)
-        def _():
-            out_ref[...] = count_ref[...]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("mode", "n_pm", "overlap", "interpret"))
-def _ac_scan_pallas_lut(
-    tables, meta, cols, gpos0, mode: str, n_pm: int, overlap: int,
-    interpret: bool = False,
-):
-    """cols: int32 [P, 8, 128] byte columns; ``tables``: replicate8 arrays
-    ((delta8, oc8) direct / (pm8, pages8, oc8) paged)."""
-    n_strips = cols.shape[0] // _AC_KSTEP
-    acc = pl.BlockSpec((_AC_SUB, _AC_LANES), lambda i: (0, 0))
-    out = pl.pallas_call(
-        _ac_kernel_lut(mode, n_pm, n_strips, overlap),
-        grid=(n_strips,),
-        in_specs=[
-            *[pl.BlockSpec((8, t.shape[1]), lambda i: (0, 0)) for t in tables],
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((_AC_KSTEP, _AC_SUB, _AC_LANES), lambda i: (i, 0, 0)),
-            acc,
-        ],
-        out_specs=acc,
-        out_shape=jax.ShapeDtypeStruct((_AC_SUB, _AC_LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((_AC_SUB, _AC_LANES), jnp.int32),
-            pltpu.VMEM((_AC_SUB, _AC_LANES), jnp.int32),
-        ],
-        interpret=interpret,
-    )(*tables, meta, cols, gpos0)
-    return jnp.sum(out, dtype=jnp.int64).astype(jnp.int32)
-
-
-def automaton_luts(automaton: "Automaton"):
-    """Replicated LUT operands for the gather scan, or None when the rule
-    walk is cheaper. Returns (mode, n_pm, tables)."""
-    from stringwars_tpu.ops.lut import paged_lut_tables, replicate8
-
-    cache = _flat_rules_cache()
-    got = cache.get(("lut", id(automaton)))
-    if got is None:
-        flat = np.asarray(automaton.delta_flat, np.int64)
-        oc = np.asarray(automaton.out_count, np.int64)
-        key_rules, oc_rules = automaton_rules(automaton)
-        n_win = -(-flat.shape[0] // 128)
-        pm, pg = paged_lut_tables(flat.astype(np.int32), page_bits=7)
-        walk_cost = 3 * key_rules.count
-        direct_cost = 2 * n_win + 1
-        paged_cost = 2 * (-(-pm.shape[0] // 128)) + 2 * (pg.shape[0] // 128) + 2
-        oc8 = replicate8(oc.astype(np.int32))
-        if min(direct_cost, paged_cost) >= walk_cost:
-            got = (None, 0, ())
-        elif direct_cost <= paged_cost:
-            got = ("direct", 1, (replicate8(flat.astype(np.int32)), oc8))
-        else:
-            got = ("paged", pm.shape[0], (replicate8(pm), replicate8(pg), oc8))
-        cache[("lut", id(automaton))] = got
-    return got
-
-
-def stage_cols(hay_np: np.ndarray, n: int, max_len: int):
-    """Column-major staging for the Pallas scan: [P, 8, 128] byte columns,
-    chunk c (at sublane/lane position c) holds bytes
-    ``[c*chunk - overlap, (c+1)*chunk)`` like ``stage_rows``."""
-    overlap = max_len - 1
-    chunk = max(-(-n // _AC_CHUNKS), 1)
-    P = -(-(chunk + overlap) // _AC_KSTEP) * _AC_KSTEP
-    buf = np.zeros(_AC_CHUNKS * chunk + overlap + P, np.uint8)
-    buf[overlap : overlap + n] = hay_np[:n]
-    rows = np.lib.stride_tricks.sliding_window_view(buf, P)[::chunk][:_AC_CHUNKS]
-    cols = np.ascontiguousarray(rows.astype(np.int32).T.reshape(P, _AC_SUB, _AC_LANES))
-    gpos0 = (np.arange(_AC_CHUNKS, dtype=np.int32) * chunk - overlap).reshape(
-        _AC_SUB, _AC_LANES
-    )
-    return jnp.asarray(cols), jnp.asarray(gpos0), overlap, overlap + chunk
-
-
-@functools.lru_cache(maxsize=None)
-def _flat_rules_cache():
-    return {}
-
-
-def automaton_rules(automaton: "Automaton"):
-    """(key step rules, out-count step rules) for the Pallas scan."""
-    cache = _flat_rules_cache()
-    got = cache.get(id(automaton))
-    if got is None:
-        from stringwars_tpu.ops.rulemap import compile_steps
-
-        key_rules = compile_steps(np.asarray(automaton.delta_flat, np.int64))
-        oc_rules = compile_steps(np.asarray(automaton.out_count, np.int64))
-        got = (key_rules, oc_rules)
-        cache[id(automaton)] = got
-    return got
-
-
-def ac_count_pallas(
-    automaton: "Automaton", hay, n: int | None = None, *, interpret: bool | None = None
-) -> int:
-    """Total occurrences via the Pallas flat-key rule scan."""
+def ac_count(automaton: Automaton, hay, n: int | None = None, *, chunk: int | None = None) -> int:
+    """Total occurrences of all patterns in ``hay[:n]`` (device scan)."""
     hay_np = np.asarray(hay, np.uint8)
     n = int(hay_np.shape[0]) if n is None else n
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    cols, gpos0, overlap, limit = stage_cols(hay_np, n, automaton.max_len)
-    mode, n_pm, tables = automaton_luts(automaton)
-    if mode is not None:
-        return int(
-            _ac_scan_pallas_lut(
-                tables, jnp.asarray([n, limit], jnp.int32), cols, gpos0,
-                mode, n_pm, overlap, bool(interpret),
-            )
-        )
-    key_rules, oc_rules = automaton_rules(automaton)
-    return int(
-        _ac_scan_pallas(
-            jnp.asarray(key_rules.starts), jnp.asarray(key_rules.deltas),
-            jnp.asarray(oc_rules.starts), jnp.asarray(oc_rules.deltas),
-            jnp.asarray([n, limit], jnp.int32), cols, gpos0,
-            key_rules.count, oc_rules.count, overlap, bool(interpret),
-        )
-    )
-
-
-def ac_count(
-    automaton: Automaton,
-    hay,
-    n: int | None = None,
-    *,
-    chunk: int | None = None,
-    use_mxu: bool | None = None,
-) -> int:
-    """Total occurrences of all patterns in ``hay[:n]`` (device scan).
-
-    On TPU the default is the Pallas flat-key rule scan
-    (``ac_count_pallas``); ``use_mxu`` forces the legacy matmul scan; the
-    gather chain remains the CPU/interpret path.
-    """
-    hay_np = np.asarray(hay, np.uint8)
-    n = int(hay_np.shape[0]) if n is None else n
-    if use_mxu is None:
-        if jax.default_backend() == "tpu":
-            return ac_count_pallas(automaton, hay_np, n)
-        use_mxu = False
-    rows_dev, gpos0, chunk = stage_rows(hay_np, n, automaton.max_len, chunk, use_mxu)
-    return int(ac_count_staged(automaton, rows_dev, gpos0, n, chunk, use_mxu))
+    rows_dev, gpos0, chunk = stage_rows(hay_np, n, automaton.max_len, chunk)
+    return int(ac_count_staged(automaton, rows_dev, gpos0, n, chunk))
 
 
 def stage_rows(
-    hay_np: np.ndarray, n: int, max_len: int, chunk: int | None, use_mxu: bool
+    hay_np: np.ndarray, n: int, max_len: int, chunk: int | None = None
 ) -> tuple[jax.Array, jax.Array, int]:
     """Device-stage the chunked haystack rows once (benches reuse them)."""
     if chunk is None:
-        # MXU path: scan steps are matmul-latency bound — target ~8192 lanes
-        # so each step's [C, 256] x [256, S] product saturates the array.
-        chunk = max(64, (n + 8191) // 8192) if use_mxu else 4096
+        chunk = max(64, -(-n // _AC_STREAMS))
     overlap = max_len - 1
     c_count = max((n + chunk - 1) // chunk, 1)
     buf = np.zeros(c_count * chunk + overlap, np.uint8)
@@ -433,12 +108,6 @@ def stage_rows(
     return rows_dev, gpos0, chunk
 
 
-def ac_count_staged(
-    automaton: Automaton, rows_dev, gpos0, n: int, chunk: int, use_mxu: bool
-) -> jax.Array:
+def ac_count_staged(automaton: Automaton, rows_dev, gpos0, n: int, chunk: int) -> jax.Array:
     """Scan pre-staged rows (stage_rows); returns a device scalar count."""
-    if use_mxu:
-        return _ac_scan_mxu(
-            automaton.delta_t, automaton.out_count_f, rows_dev, gpos0, n, chunk
-        )
     return _ac_scan(automaton.delta_flat, automaton.out_count, rows_dev, gpos0, n, chunk)

@@ -2,7 +2,7 @@
 north-star "regex-pre-split byte-level tokenization with replicated
 merge/vocab tables" workload; BASELINE.json configs 1 & 5).
 
-TPU-native shape:
+Device shape:
 
 - **Pre-split** happens with the framework's own segmentation kernels
   (whitespace boundaries, ``ops/segment.py``) or any host regex; each
@@ -69,30 +69,6 @@ class MergeTable:
             new_ids=jnp.asarray(new_ids[order]),
             vocab_size=256 + len(merges),
         )
-
-    def rule_maps(self):
-        """ONE packed sparse equality map for the gather-free lookup —
-        value = (rank + 1) << 16 | new_id (0 means miss; both halves fit
-        16 bits since the rules path caps at 4096 merges) — or None when
-        keys exceed the rule evaluator's int32 domain.
-
-        Memoized ON the instance (an earlier id(self)-keyed module dict
-        served STALE rules when a dead table's id was reused after GC)."""
-        cached = self.__dict__.get("_rules_cache")
-        if cached is not None:
-            return cached if cached != "none" else None
-        keys = np.asarray(self.sorted_keys, np.int64)
-        if keys.size == 0 or keys.max() >= 2**31 or keys.size > 4096:
-            object.__setattr__(self, "_rules_cache", "none")
-            return None
-        from stringwars_tpu.ops.rulemap import compile_sparse_values
-
-        packed = (
-            (np.asarray(self.ranks, np.int64) + 1) << 16
-        ) | np.asarray(self.new_ids, np.int64)
-        rules = compile_sparse_values(keys, packed)
-        object.__setattr__(self, "_rules_cache", rules)
-        return rules
 
 
 def train_merges(corpus_tokens: list[bytes], n_merges: int) -> list[tuple[int, int]]:
@@ -262,8 +238,7 @@ def _encode_impl(ids, counts, lookup, max_iters: int):
 
     ids, counts, _, _ = jax.lax.while_loop(cond_fn, body_fn, state)
     # One stable compaction after the loop (holes sort last): packed
-    # single-operand sort — ids fit 16 bits, and the old argsort +
-    # take_along_axis pair paid a near-scalar TPU gather.
+    # single-operand sort — ids fit 16 bits.
     sort_keys = jnp.where(ids >= 0, pos, W + pos)
     packed = jax.lax.sort((sort_keys << 16) | (ids & jnp.int32(0xFFFF)), dimension=1)
     vals = packed & jnp.int32(0xFFFF)
@@ -274,7 +249,7 @@ def _encode_impl(ids, counts, lookup, max_iters: int):
 @functools.partial(jax.jit, static_argnames=("max_iters",))
 def _bpe_encode(ids, counts, sorted_keys, ranks, new_ids, max_iters: int):
     """ids: int32 [B, W] (byte values, -1 past counts); counts: int32 [B].
-    Binary-search pair lookup (the CPU / large-vocab path)."""
+    Pair lookup is a binary search over the sorted merge keys."""
 
     def lookup(keys):
         idx = jnp.searchsorted(sorted_keys, keys)
@@ -288,53 +263,12 @@ def _bpe_encode(ids, counts, sorted_keys, ranks, new_ids, max_iters: int):
     return _encode_impl(ids, counts, lookup, max_iters)
 
 
-_RULE_ENCODERS: dict = {}
-
-
-def _rule_encoder(table: "MergeTable", max_iters: int, interpret: bool):
-    """Per-table jitted encoder with a rule-map pair lookup: the merge
-    table as sparse equality rules evaluated by the Pallas range kernel —
-    zero gathers per iteration (a TPU binary search costs ~10 serializing
-    gathers per pair). The cache value holds the table, so its id can
-    never be recycled onto a different table's entry."""
-    key = (id(table), max_iters, interpret)
-    cached = _RULE_ENCODERS.get(key)
-    if cached is not None:
-        return cached[1]
-    from stringwars_tpu.ops import rulemap
-
-    rules = table.rule_maps()
-
-    def lookup(keys):
-        k = keys.astype(jnp.int32)
-        packed = rulemap.range_map(k, rules, interpret=interpret)
-        hit = packed > 0
-        return (
-            jnp.where(hit, (packed >> 16) - 1, _INF),
-            jnp.where(hit, packed & 0xFFFF, -1),
-        )
-
-    @jax.jit
-    def enc(ids, counts):
-        return _encode_impl(ids, counts, lookup, max_iters)
-
-    _RULE_ENCODERS[key] = (table, enc)
-    return enc
-
-
-def bpe_encode(
-    tokens: PaddedTokens, table: MergeTable, *, interpret: bool | None = None
-) -> tuple[jax.Array, jax.Array]:
+def bpe_encode(tokens: PaddedTokens, table: MergeTable) -> tuple[jax.Array, jax.Array]:
     """Encode every pretoken row: returns (ids int32 [B, W] with -1 padding,
     counts int32 [B])."""
     ids = tokens.data.astype(jnp.int32)
     counts = tokens.lengths.astype(jnp.int32)
     W = int(tokens.data.shape[1])
-    use_rules = (
-        (jax.default_backend() == "tpu") if interpret is None else True
-    ) and table.rule_maps() is not None
-    if use_rules:
-        return _rule_encoder(table, max(W - 1, 1), bool(interpret))(ids, counts)
     return _bpe_encode(
         ids, counts, table.sorted_keys, table.ranks, table.new_ids, max(W - 1, 1)
     )

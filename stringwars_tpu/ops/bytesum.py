@@ -1,10 +1,9 @@
 """Bytesum — the speed-of-light HBM-bandwidth probe (kernel family K4-lite).
 
 The reference benchmarks ``sz::bytesum`` as its memory-bound reference bound
-(``hash/bench.rs:298-389``; 12.62 GB/s on SPR, ``hash/README.md:78``). On TPU
-the same role is played by a fused uint8 reduce that streams the corpus from
-HBM once; it calibrates the achieved-bandwidth roofline every other kernel's
-"% SoL" column is reported against.
+(``hash/bench.rs:298-389``; 12.62 GB/s on SPR, ``hash/README.md:78``). Here
+the same role is played by a fused reduce that streams the corpus from
+device memory once.
 
 Exactness: a flat i32 reduce overflows past ~8 MB, so the sum is computed in
 two tiers — per-chunk i32 partials (chunk sized so a partial can't overflow),
@@ -45,10 +44,9 @@ _BYTESUM_LANES = 4096  # minor-axis width of the reduce (multiple of 128)
 
 
 def _word_chunk_shape(n_words: int) -> tuple[int, int]:
-    """(rows, lanes) in u32 words: the reduce runs DOWN the major axis
-    (element-parallel across lanes — a minor-axis reduce pays cross-lane
-    shuffles per tile); per-lane u32 accumulation of 16-bit pair-sums
-    (≤ 1020/word) stays exact for rows < 2³²/1020 ≈ 4.2 M (≈ 68 GB)."""
+    """(rows, lanes) in u32 words: the reduce runs down the major axis;
+    per-lane u32 accumulation of 16-bit pair-sums (≤ 1020/word) stays
+    exact for rows < 2³²/1020 ≈ 4.2 M (≈ 68 GB)."""
     lanes = _BYTESUM_LANES
     rows = (n_words + lanes - 1) // lanes
     return rows, lanes
@@ -58,10 +56,9 @@ def _word_chunk_shape(n_words: int) -> tuple[int, int]:
 def _bytesum_words_parts(words: jax.Array, n: int) -> tuple[jax.Array, jax.Array]:
     """Exact byte sum over little-endian u32 words (zero-padded past ``n``).
 
-    The u8→i32 convert in :func:`_bytesum_parts` tile-pads byte lanes and
-    runs far below the HBM roofline; staying in u32 and pair-summing bytes
-    into 16-bit fields ((w & 0x00FF00FF) + ((w >> 8) & 0x00FF00FF)) keeps
-    the stream at native lane width — this is the roofline-calibration path.
+    Staying in u32 and pair-summing bytes into 16-bit fields
+    ((w & 0x00FF00FF) + ((w >> 8) & 0x00FF00FF)) reads the stream a word
+    at a time instead of converting every byte to i32.
     """
     n_words = (n + 3) // 4
     rows, lanes = _word_chunk_shape(n_words)
@@ -123,97 +120,3 @@ def bytesum_device(data: jax.Array, n: int) -> jax.Array:
     lo = jnp.sum(partials & 0xFFFF).astype(jnp.uint32)
     hi = jnp.sum(partials >> 16).astype(jnp.uint32)
     return (hi << 16) + lo
-
-
-# ---------------------------------------------------------------------------
-# Single-pass Pallas reduction — the true speed-of-light path. The XLA
-# word form above lowers to a multi-pass tree reduce (several HBM round
-# trips of partials; measured ~134 GB/s at 256 MB); this kernel streams
-# each block exactly once into a VMEM accumulator across the sequential
-# grid (traffic = one corpus read -> HBM-roofline-bound).
-# ---------------------------------------------------------------------------
-
-_PL_LANES = 1024
-_PL_SUB = 8
-_PL_BLK = 32  # sub-blocks per grid step: 1 MB DMAs (32 KB steps measured
-              # DMA-overhead-bound at 78 GB/s; the data wants big transfers)
-
-
-def _bytesum_kernel(salt_ref, w_ref, out_ref, acc_ref):
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[...] = jnp.zeros((_PL_SUB, _PL_LANES), jnp.uint32)
-
-    m = jnp.uint32(0x00FF00FF)
-    salt = salt_ref[0]  # in-kernel perturbation: the chained protocol's
-    acc = acc_ref[...]  # salt XOR costs no extra HBM pass this way
-    for k in range(_PL_BLK):
-        w = w_ref[k] ^ salt
-        pair = (w & m) + ((w >> 8) & m)
-        acc = acc + (pair & jnp.uint32(0xFFFF)) + (pair >> 16)
-    acc_ref[...] = acc
-
-    @pl.when(i == pl.num_programs(0) - 1)
-    def _():
-        acc = acc_ref[...]
-        # Mosaic has no unsigned reductions; both 16-bit halves fit i32
-        # (8192 slots x 65535 < 2^31).
-        lo = jnp.sum((acc & jnp.uint32(0xFFFF)).astype(jnp.int32))
-        hi = jnp.sum((acc >> 16).astype(jnp.int32))
-        row = jax.lax.broadcasted_iota(jnp.int32, (_PL_SUB, 128), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (_PL_SUB, 128), 1)
-        out_ref[...] = jnp.where(
-            (row == 0) & (col == 0), hi, jnp.where((row == 0) & (col == 1), lo, 0)
-        ).astype(jnp.uint32)
-
-
-@functools.partial(jax.jit, static_argnames=("n", "interpret"))
-def _bytesum_words_pallas(words: jax.Array, n: int, interpret: bool = False, salt=None):
-    """(hi, lo) 16-bit-limb halves of the byte sum, one HBM pass.
-
-    ``words``: little-endian u32, zero-padded past byte ``n`` to a
-    multiple of 32*8*1024 words. Per-slot u32 accumulation of
-    <=1020/word contributions stays exact for < 4.2 M sub-blocks
-    (~275 GB).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    blk = _PL_BLK * _PL_SUB * _PL_LANES
-    rows = words.shape[0] // blk
-    if salt is None:
-        salt = jnp.uint32(0)
-    out = pl.pallas_call(
-        _bytesum_kernel,
-        grid=(rows,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((_PL_BLK, _PL_SUB, _PL_LANES), lambda i: (i, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((_PL_SUB, 128), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((_PL_SUB, 128), jnp.uint32),
-        scratch_shapes=[pltpu.VMEM((_PL_SUB, _PL_LANES), jnp.uint32)],
-        interpret=interpret,
-    )(jnp.asarray(salt, jnp.uint32).reshape(1), words.reshape(rows * _PL_BLK, _PL_SUB, _PL_LANES))
-    return out[0, 0], out[0, 1]
-
-
-def bytesum_words_pallas(words, n: int, *, interpret: bool | None = None) -> int:
-    """Exact byte sum via the single-pass kernel (production TPU path)."""
-    if n == 0:
-        return 0
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    words = jnp.asarray(words)
-    blk = _PL_BLK * _PL_SUB * _PL_LANES
-    need = -(-max((n + 3) // 4, 1) // blk) * blk
-    if words.shape[0] < need:
-        words = jnp.pad(words, (0, need - words.shape[0]))
-    else:
-        words = words[:need] if words.shape[0] % blk else words
-    hi, lo = _bytesum_words_pallas(words, n, bool(interpret))
-    return (int(hi) << 16) + int(lo)

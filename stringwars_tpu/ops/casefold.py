@@ -37,13 +37,12 @@ def _fold_arrays():
 
 @functools.lru_cache(maxsize=None)
 def _fold_rules(max_cp: int | None = None):
-    """Gather-free rule sets: (simple-fold range rules, expansion-length
-    sparse map, packed-e1e2 sparse map, e3 sparse map). Expansion chars are
-    packed two-per-rule-value (e1 | e2 << 16; every pool char fits 16 bits).
+    """Rule sets: (simple-fold range rules, expansion-length sparse map,
+    packed-e1e2 sparse map, e3 sparse map). Expansion chars are packed
+    two-per-rule-value (e1 | e2 << 16; every pool char fits 16 bits).
 
     ``max_cp`` (static, from staging) prunes to the corpus' observed
-    codepoint ceiling — the fold rules are the dominant per-element cost
-    (345 rules full-Unicode ≈ 1.7 k VPU ops/cp; ≤0x4FF keeps 110)."""
+    codepoint ceiling, which also bounds the expansion width ``max_exp``."""
     from stringwars_tpu.ops import rulemap
 
     inline, multi, pool = _fold_arrays()
@@ -103,7 +102,7 @@ def fold_tokens_ascii(tokens) -> tuple[jax.Array, jax.Array]:
     For pure-ASCII tokens the full Unicode fold IS lowercase (every
     1→N expansion starts above U+00DF), so folding is three vector ops
     per byte instead of the general kernel's decode + expansion
-    scatters — the TPU analog of the reference kernels' ASCII runs
+    scatters — the analog of the reference kernels' ASCII runs
     (case fold on English measures 7.53 GB/s there,
     ``normalization/README.md``). Returns (folded uint8[B, W],
     counts = lengths). Caller guarantees ASCII purity (see
@@ -235,22 +234,20 @@ def _decode_rows(data: jax.Array, lengths: jax.Array):
 
 @functools.partial(jax.jit, static_argnames=("max_cp",))
 def fold_tokens(tokens, max_cp: int | None = None) -> tuple[jax.Array, jax.Array]:
-    """Row-wise full case fold of a PaddedTokens batch — gather-free.
+    """Row-wise full case fold of a PaddedTokens batch.
 
     Returns (folded int32[B, 3W], folded_count int32[B]); each row is the
     folded codepoint sequence of that token (compacted to the row front).
 
-    Pipeline (PERFORMANCE.md finding #4 playbook — the scatter form
-    measured 0.01 GB/s on the chip):
+    Pipeline:
 
     1. decode leaves codepoints AT their lead-byte positions;
-    2. the simple fold is ~200 arithmetic range rules (``ops/rulemap``,
-       Pallas on TPU — zero table gathers);
+    2. the simple fold is ~200 range rules (``ops/rulemap``), one table
+       gather;
     3. 1→3 expansions come from sparse equality maps packed two chars per
        value;
     4. compaction (drop continuation slots, splice expansions) is ONE
-       two-operand ``lax.sort`` by destination index per row — a bitonic
-       network on the lane axis instead of a serializing scatter.
+       ``lax.sort`` by destination index per row instead of a scatter.
     """
     from stringwars_tpu.ops import rulemap
 

@@ -1,9 +1,9 @@
 """ChaCha20-Poly1305 AEAD (kernel family K13, RFC 8439).
 
 The reference benchmarks AEAD keygen/encrypt/decrypt via ring/openssl/
-libsodium (``encryption/bench.rs``). TPUs have no AES instructions, so the
-on-device cipher is ChaCha20 — pure 32-bit add-rotate-xor, a perfect fit
-for int32 lanes (SURVEY.md K13) — with Poly1305 as the authenticator.
+libsodium (``encryption/bench.rs``). The on-device cipher is ChaCha20 —
+pure 32-bit add-rotate-xor, which XLA fuses into elementwise kernels
+(SURVEY.md K13) — with Poly1305 as the authenticator.
 
 Parallel structure:
 - **ChaCha20**: every 64-byte block's state differs only in the counter
@@ -84,91 +84,8 @@ def _key_words(key: bytes) -> jax.Array:
     return jnp.asarray(np.frombuffer(key, "<u4"))
 
 
-# ---------------------------------------------------------------------------
-# Pallas fast path. The XLA form above is the oracle: its ~1,600-op
-# elementwise chain gets split into several fused kernels, each spilling
-# all 16 state words through HBM (measured ~10 GB/s — memory-bound, not
-# ARX-bound). Here one grid step keeps the 16 words in (8, 128) registers
-# for all 20 rounds, so HBM traffic is just data-in + data-out.
-#
-# Layout: a step covers 1024 blocks; state word i of those blocks is one
-# (8, 128) register. Data arrives pre-transposed to [steps, 16, 8, 128]
-# (word-major) by a cheap XLA relayout on either side of the kernel.
-# ---------------------------------------------------------------------------
-
-_CC_BLOCKS_PER_STEP = 1024
-
-
-def _chacha_kernel(key_ref, nonce_ref, ctr_ref, dt_ref, out_ref):
-    from jax.experimental import pallas as pl
-
-    step = pl.program_id(0)
-    lane = jax.lax.broadcasted_iota(jnp.uint32, (8, 128), 1)
-    sub = jax.lax.broadcasted_iota(jnp.uint32, (8, 128), 0)
-    ctr = ctr_ref[0] + jnp.uint32(_CC_BLOCKS_PER_STEP) * step.astype(jnp.uint32) + sub * jnp.uint32(128) + lane
-    consts = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
-    state = [jnp.full((8, 128), jnp.uint32(c)) for c in consts]
-    state += [jnp.full((8, 128), key_ref[i]) for i in range(8)]
-    state += [ctr]
-    state += [jnp.full((8, 128), nonce_ref[i]) for i in range(3)]
-    x = list(state)
-    for _ in range(10):
-        x[0], x[4], x[8], x[12] = _quarter(x[0], x[4], x[8], x[12])
-        x[1], x[5], x[9], x[13] = _quarter(x[1], x[5], x[9], x[13])
-        x[2], x[6], x[10], x[14] = _quarter(x[2], x[6], x[10], x[14])
-        x[3], x[7], x[11], x[15] = _quarter(x[3], x[7], x[11], x[15])
-        x[0], x[5], x[10], x[15] = _quarter(x[0], x[5], x[10], x[15])
-        x[1], x[6], x[11], x[12] = _quarter(x[1], x[6], x[11], x[12])
-        x[2], x[7], x[8], x[13] = _quarter(x[2], x[7], x[8], x[13])
-        x[3], x[4], x[9], x[14] = _quarter(x[3], x[4], x[9], x[14])
-    for i in range(16):
-        out_ref[0, i] = dt_ref[0, i] ^ (x[i] + state[i])
-
-
-@functools.partial(jax.jit, static_argnames=("n_steps", "interpret"))
-def _xor_keystream_pallas(data_u32, key8, nonce3, counter, n_steps: int, interpret: bool = False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    dt4 = data_u32.reshape(n_steps, 8, 128, 16).transpose(0, 3, 1, 2)
-    out4 = pl.pallas_call(
-        _chacha_kernel,
-        grid=(n_steps,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 16, 8, 128), lambda s: (s, 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, 16, 8, 128), lambda s: (s, 0, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_steps, 16, 8, 128), jnp.uint32),
-        interpret=interpret,
-    )(key8, nonce3, counter.reshape(1), dt4)
-    return out4.transpose(0, 2, 3, 1).reshape(-1)
-
-
-def _pallas_eligible(n_blocks: int, n_words: int) -> bool:
-    """Whole-step-aligned buffers ride the registers-resident Pallas path —
-    but only on a real TPU: in interpret mode (CPU) it is far slower than
-    the fused XLA form, and other backends lack pltpu memory spaces.
-    Decided HOST-SIDE so the jit cache key (static ``use_pallas``) can never
-    go stale if the default backend changes within a process."""
-    return (
-        jax.default_backend() == "tpu"
-        and n_blocks % _CC_BLOCKS_PER_STEP == 0
-        and n_words == n_blocks * 16
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("n_blocks", "use_pallas", "interpret"))
-def _xor_keystream_u32(
-    data_u32, key8, nonce3, counter, n_blocks: int,
-    use_pallas: bool = False, interpret: bool = False,
-):
-    if use_pallas:
-        return _xor_keystream_pallas(
-            data_u32, key8, nonce3, counter, n_blocks // _CC_BLOCKS_PER_STEP, interpret
-        )
+@functools.partial(jax.jit, static_argnames=("n_blocks",))
+def _xor_keystream_u32(data_u32, key8, nonce3, counter, n_blocks: int):
     ks = _keystream(key8, nonce3, counter, n_blocks).reshape(-1)
     return data_u32 ^ ks[: data_u32.shape[0]]
 
@@ -176,12 +93,14 @@ def _xor_keystream_u32(
 def chacha20_xor(key: bytes, nonce: bytes, data, counter: int = 1) -> np.ndarray:
     """XOR ``data`` with the ChaCha20 keystream (encrypt == decrypt).
 
-    Device compute stays in u32 lanes (byte-wise bitcasts are
-    layout-hostile on TPU); the result is returned as host bytes.
+    Device compute stays in u32 lanes; the result is returned as host
+    bytes. The block count rounds up to a power of two, so messages of
+    similar lengths share one compiled program (the extra keystream
+    blocks are discarded).
     """
     data_np = np.asarray(data, np.uint8)
     n = data_np.shape[0]
-    n_blocks = max((n + 63) // 64, 1)
+    n_blocks = 1 << (max((n + 63) // 64, 1) - 1).bit_length()
     padded = np.zeros(n_blocks * 64, np.uint8)
     padded[:n] = data_np
     data_u32 = jnp.asarray(padded.view("<u4"))
@@ -191,7 +110,6 @@ def chacha20_xor(key: bytes, nonce: bytes, data, counter: int = 1) -> np.ndarray
         jnp.asarray(np.frombuffer(nonce, "<u4")),
         jnp.uint32(counter),
         n_blocks,
-        use_pallas=_pallas_eligible(n_blocks, data_u32.shape[0]),
     )
     return np.asarray(out).view(np.uint8)[:n]
 

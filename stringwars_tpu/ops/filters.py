@@ -2,7 +2,7 @@
 
 The reference benchmarks Bloom (fastbloom/pyprobables) and BinaryFuse8
 (xorf) filters: build + query throughput, measured FPR on a held-out 20 %
-split, and bits/key (``containers/bench.rs:190-341``). TPU-native design:
+split, and bits/key (``containers/bench.rs:190-341``). Design:
 
 - **Bloom**: the bit array is a device-resident uint32 word tensor; the k
   probe positions come from ``xxh64_multiseed`` (k independent seeds — the
@@ -13,7 +13,7 @@ split, and bits/key (``containers/bench.rs:190-341``). TPU-native design:
 - **BinaryFuse8**: construction is inherently sequential peeling, so it
   runs on the host (numpy) like the reference's xorf build; the fingerprint
   table is shipped to the device and queries (3 segment gathers, xor, 8-bit
-  compare) are batched TPU ops.
+  compare) are batched device ops.
 """
 
 from __future__ import annotations

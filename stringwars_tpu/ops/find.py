@@ -2,15 +2,15 @@
 
 The reference benchmarks all-matches substring scans (forward ``sz::find`` /
 memmem loops, backward ``rfind``, ``find/bench.rs:56-219``) and byteset
-scans over 3 charsets (``find/bench.rs:226-348``). TPU-native design:
+scans over 3 charsets (``find/bench.rs:226-348``). Design:
 
-- **Packed-word window compare.** A window starting at byte ``p`` is checked
-  with ``ceil(m/4)`` uint32 equality tests instead of ``m`` byte tests: the
-  haystack is viewed as 4 byte-offset u32 streams (offset ``o = p mod 4``),
-  and the needle is staged into 4 offset-shifted word images with per-word
-  masks. All compares are dense vector ops — no data-dependent early exit,
-  which matches the all-matches semantics the reference actually measures
-  (``find/bench.rs:88-93``).
+- **Shifted byte compares.** A window starting at byte ``p`` matches when
+  ``hay[p + j] == needle[j]`` for every needle byte ``j``; each ``j`` is one
+  offset slice of the haystack, and XLA fuses the whole chain into one
+  pass. The needle is staged into 4 offset-shifted word images with
+  per-word masks (``PackedNeedle``). All compares are dense vector ops — no
+  data-dependent early exit, which matches the all-matches semantics the
+  reference actually measures (``find/bench.rs:88-93``).
 - **Dynamic needles.** The needle arrives as packed arrays (not Python
   bytes), so cycling needles per call — the reference's workload shape —
   never recompiles. One compilation per (haystack length, needle capacity)
@@ -97,8 +97,7 @@ def _match_mask(hay: jax.Array, needle: PackedNeedle, n: int) -> jax.Array:
 
     Shifted *contiguous* byte compares: position-j of the needle tests
     ``hay[p + j] == needle[j]`` via the offset slice ``hay[j : j + n]`` —
-    each comparison streams the haystack once on dense u8 lanes (offset
-    slices are layout-clean on TPU; strided/packed u32 views are not).
+    each comparison streams the haystack once on dense u8 lanes.
     The needle bytes/mask come from the offset-0 image of the packed
     needle, so needles stay dynamic (no recompile when cycling).
     """
@@ -137,7 +136,6 @@ def _count_from_mask_limit(hay, needle, n, limit):
 
 def _staged(hay, n: int, cap: int):
     pad_to = n + 4 * cap + 8
-    pad_to += -pad_to % 512  # keep the [R, 128, 4] bitcast view exact
     if hay.shape[0] < pad_to:
         hay = jnp.pad(hay, (0, pad_to - hay.shape[0]))
     return hay
@@ -248,66 +246,3 @@ def byteset_count_bounded(hay, table, n: int, lo, n_glob) -> jax.Array:
     member = _byteset_member(hay, table, n).astype(jnp.int32)
     p = jnp.arange(n, dtype=jnp.int32)
     return jnp.sum(jnp.where(lo + p < n_glob, member, 0), dtype=jnp.int32)
-
-
-# ---------------------------------------------------------------------------
-# MXU formulation: exact match via sum-of-squared-differences convolutions
-# ---------------------------------------------------------------------------
-
-@functools.partial(jax.jit, static_argnames=("n", "max_m"))
-def _match_mask_conv(hay: jax.Array, needle: PackedNeedle, n: int, max_m: int) -> jax.Array:
-    """bool[n]: window match mask via two MXU convolutions.
-
-    ``sum_j (hay[p+j] - needle[j])^2 == 0`` expands into a windowed square
-    sum and a cross-correlation with the needle — both length-``max_m``
-    convolutions the MXU executes at memory speed. All terms stay below
-    2^24, so f32 arithmetic is exact; shifted-slice fusion problems never
-    arise because convs are native.
-    """
-    # Per-byte mask/needle images from the packed offset-0 image.
-    j_idx = jnp.arange(max_m, dtype=jnp.int32)
-    words = needle.words[0, j_idx // 4]
-    masks_w = needle.masks[0, j_idx // 4]
-    shift = ((j_idx % 4) * 8).astype(jnp.uint32)
-    nb = ((words >> shift) & jnp.uint32(0xFF)).astype(jnp.float32)
-    mvalid = (((masks_w >> shift) & jnp.uint32(0xFF)) != 0).astype(jnp.float32)
-
-    hay_f = hay[: n + max_m].astype(jnp.float32)
-    hay_sq = hay_f * hay_f
-
-    def conv(signal, kernel):
-        return jax.lax.conv_general_dilated(
-            signal[None, None, :],
-            kernel[None, None, :],
-            window_strides=(1,),
-            padding="VALID",
-            preferred_element_type=jnp.float32,
-        )[0, 0]
-
-    win_sq = conv(hay_sq, mvalid)[:n]
-    cross = conv(hay_f, nb * mvalid)[:n]
-    needle_sq = jnp.sum(nb * nb * mvalid)
-    diff = win_sq - 2.0 * cross + needle_sq
-    p = jnp.arange(n, dtype=jnp.int32)
-    return (diff == 0.0) & (p <= (n - needle.length))
-
-
-# Largest needle for which the SSD test stays exact in f32: each windowed
-# term (win_sq, cross) is at most max_m*255^2 = 8,388,225 < 2^23, so the
-# combination |win_sq - 2*cross + needle_sq| <= 2*max_m*255^2 < 2^24, the
-# f32 exact-integer limit. 129 is exactly at the edge.
-_CONV_MAX_M = 129
-
-
-def find_count_conv(hay, needle: PackedNeedle, n: int | None = None) -> jax.Array:
-    """All-matches count via the MXU convolution formulation."""
-    hay = jnp.asarray(hay, dtype=jnp.uint8)
-    n = int(hay.shape[0]) if n is None else n
-    max_m = 4 * needle.capacity - 3
-    if max_m > _CONV_MAX_M:
-        raise ValueError(
-            f"conv find supports needles up to {_CONV_MAX_M} bytes "
-            f"(capacity {needle.capacity} words allows {max_m}); beyond that "
-            "the combined f32 SSD term 2*max_m*255^2 exceeds 2^24 and rounds"
-        )
-    return jnp.sum(_match_mask_conv(_staged(hay, n, needle.capacity), needle, n, max_m), dtype=jnp.int32)

@@ -4,7 +4,7 @@ The reference fingerprints each document with NDIM min-hashes spread over
 byte n-grams of widths [5, 9, 17, 33] (NDIM/4 dims per width), outputting
 min-hash values and min-counts (``fingerprints/bench.rs:85, 190-660``).
 
-TPU-native spec (documented here; numpy replay in tests is the oracle):
+Spec (documented here; numpy replay in tests is the oracle):
 
 1. **Gram hash** ``G_w[p] = sum_t token[p+t] * B^(w-1-t) (mod 2^32)`` — a
    polynomial hash with odd base B = 0x01000193. Computed for all positions
@@ -21,7 +21,7 @@ TPU-native spec (documented here; numpy replay in tests is the oracle):
    in-range positions ``p <= len - w``; the published min-hash is
    ``mix32(min)`` (avalanche remix restores per-bit entropy without
    changing collision probabilities). A per-value avalanche would add ~6
-   VPU ops to the 3-op inner loop for no MinHash-quality gain.
+   vector ops to the 3-op inner loop for no MinHash-quality gain.
 
 Outputs match the reference's shape: ``min_hashes uint32[B, ndim]``,
 ``min_counts int32[B, ndim]`` (how many grams attained the min).
@@ -34,8 +34,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from stringwars_tpu.tape import PaddedTokens
 
@@ -99,162 +97,15 @@ def _gram_hashes(data: jax.Array, widths: tuple[int, ...]) -> dict[int, jax.Arra
     return out
 
 
-# ---------------------------------------------------------------------------
-# Pallas fast path: gram blocks stay in VMEM while a fori_loop walks the
-# dims — the XLA form materializes [B, W, dim_chunk] broadcasts through HBM
-# (ndim× memory amplification, the 0.64 GB/s wall of round 2).
-#
-# Layout: TOKENS ride the lane axis (128 per grid step) and the per-dim
-# result row is stored at a DYNAMIC SUBLANE offset of a transposed
-# [ndim, B] output — Mosaic supports dynamic sublane slices but requires
-# lane offsets to be 128-aligned (the first version of this kernel wrote
-# ``out[:, ds(d, 1)]`` and failed to compile on the real chip). Positions
-# walk the sublane axis 8 at a time with a fused running (min, count)
-# accumulator, so one pass over the grams yields both outputs.
-# ---------------------------------------------------------------------------
-
-_FP_LANES = 128  # tokens per grid step (one lane each)
-
-
-def _fp_kernel(per_width: int, with_counts: bool, n_pos_chunks: int):
-    intmax = np.int32(0x7FFFFFFF)
-    flip = np.uint32(0x80000000)
-
-    def kernel(a_ref, b_ref, w_ref, g_ref, len_ref, out_ref, cnt_ref):
-        n_w = g_ref.shape[0]
-        lens = len_ref[0, :1]  # (1, 128) broadcasts against (8, 128)
-        sub_iota = jax.lax.broadcasted_iota(jnp.int32, (8, _FP_LANES), 0)
-
-        for wi in range(n_w):
-            w = w_ref[wi]
-            last_valid = jnp.maximum(lens - w, 0)  # position 0 always valid
-
-            def dim_body(d, _, wi=wi, last_valid=last_valid):
-                a = a_ref[d]
-                b = b_ref[d]
-
-                def pos_body(pc, carry):
-                    acc, cnt = carry
-                    g8 = g_ref[wi, pl.ds(pc * 8, 8), :]  # (8, 128)
-                    valid = (pc * 8 + sub_iota) <= last_valid
-                    # Mosaic has no unsigned min: flip the sign bit and
-                    # bitcast so uint32 order becomes int32 order.
-                    vals = jax.lax.bitcast_convert_type((g8 * a + b) ^ flip, jnp.int32)
-                    vals = jnp.where(valid, vals, intmax)
-                    lower = vals < acc
-                    if with_counts:
-                        vi = valid.astype(jnp.int32)
-                        cnt = jnp.where(lower, vi, cnt + jnp.where(vals == acc, vi, 0))
-                    return jnp.where(lower, vals, acc), cnt
-
-                acc0 = jnp.full((8, _FP_LANES), intmax, jnp.int32)
-                cnt0 = jnp.zeros((8, _FP_LANES), jnp.int32)
-                acc, cnt = jax.lax.fori_loop(0, n_pos_chunks, pos_body, (acc0, cnt0))
-                m_signed = jnp.min(acc, axis=0, keepdims=True)  # (1, 128)
-                m = jax.lax.bitcast_convert_type(m_signed, jnp.uint32) ^ flip
-                out_ref[pl.ds(d, 1), :] = _mix32(m)
-                if with_counts:
-                    cnt_ref[pl.ds(d, 1), :] = jnp.sum(
-                        jnp.where(acc == m_signed, cnt, 0), axis=0, keepdims=True,
-                        dtype=jnp.int32,
-                    )
-                return ()
-
-            jax.lax.fori_loop(wi * per_width, (wi + 1) * per_width, dim_body, ())
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("ndim", "widths", "with_counts", "interpret"))
-def _fingerprint_pallas(
-    data: jax.Array,
-    lengths: jax.Array,
-    ndim: int,
-    widths: tuple[int, ...],
-    with_counts: bool,
-    interpret: bool = False,
-):
-    B, W0 = data.shape
-    per_width = ndim // len(widths)
-    grams = _gram_hashes(data, widths)
-    W = -(-W0 // 8) * 8
-    Bp = -(-B // _FP_LANES) * _FP_LANES
-    # [n_w, W, Bp]: positions on sublanes, tokens on lanes.
-    g_stack = jnp.stack([grams[w] for w in widths], axis=0)  # [n_w, B, W0]
-    g_stack = jnp.pad(g_stack, ((0, 0), (0, Bp - B), (0, W - W0))).transpose(0, 2, 1)
-    # (nt, 8, 128) with identical sublane rows: Pallas block sublane dims
-    # must be divisible by 8, so a flat (nt, 128) + (1, 128) block is not
-    # expressible — broadcast the 8 sublanes instead and read row 0.
-    len_meta = jnp.broadcast_to(
-        jnp.pad(lengths.astype(jnp.int32), (0, Bp - B)).reshape(Bp // _FP_LANES, 1, _FP_LANES),
-        (Bp // _FP_LANES, 8, _FP_LANES),
-    )
-    a_np, b_np = dim_coefficients(ndim)
-    widths_arr = jnp.asarray(np.asarray(widths, np.int32))
-
-    n_w = len(widths)
-    outs = pl.pallas_call(
-        _fp_kernel(per_width, with_counts, W // 8),
-        grid=(Bp // _FP_LANES,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_w, W, _FP_LANES), lambda i: (0, 0, i)),
-            pl.BlockSpec((1, 8, _FP_LANES), lambda i: (i, 0, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((ndim, _FP_LANES), lambda i: (0, i)),
-            pl.BlockSpec((ndim, _FP_LANES), lambda i: (0, i)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((ndim, Bp), jnp.uint32),
-            jax.ShapeDtypeStruct((ndim, Bp), jnp.int32),
-        ),
-        interpret=interpret,
-    )(jnp.asarray(a_np), jnp.asarray(b_np), widths_arr, g_stack, len_meta)
-    min_hashes, min_counts = outs
-    return min_hashes.T[:B], (min_counts.T[:B] if with_counts else None)
-
-
+@functools.partial(jax.jit, static_argnames=("ndim", "widths", "with_counts", "dim_chunk"))
 def fingerprint(
     tokens: PaddedTokens,
     ndim: int = 256,
     widths: tuple[int, ...] = WINDOW_WIDTHS,
     with_counts: bool = True,
     dim_chunk: int = 16,
-    *,
-    interpret: bool | None = None,
 ) -> tuple[jax.Array, jax.Array | None]:
     """MinHash signature of every token: (min_hashes [B, ndim], min_counts).
-
-    The XLA fused broadcast form is the production path on every backend:
-    the workload is VPU-compute-bound (~8.6G position x dim cells x ~4-5
-    element-ops at ~1.58 Top/s measured -> ~0.6-0.77 GB/s ceiling for the
-    16 MB batch) and XLA's fusion already runs near that roofline
-    (0.64 GB/s measured); the Pallas tokens-on-lanes kernel pays dynamic
-    sublane-slice + serial dim-loop overhead and measures 0.19 GB/s. The
-    kernel is kept (``interpret`` forces it) as the explicit-layout
-    record of the experiment."""
-    if ndim % len(widths):
-        raise ValueError(f"ndim {ndim} not divisible by {len(widths)} widths")
-    use_pallas = False if interpret is None else True
-    if use_pallas:
-        return _fingerprint_pallas(
-            tokens.data, tokens.lengths, ndim, widths, with_counts, bool(interpret)
-        )
-    return fingerprint_xla(tokens, ndim, widths, with_counts, dim_chunk)
-
-
-@functools.partial(jax.jit, static_argnames=("ndim", "widths", "with_counts", "dim_chunk"))
-def fingerprint_xla(
-    tokens: PaddedTokens,
-    ndim: int = 256,
-    widths: tuple[int, ...] = WINDOW_WIDTHS,
-    with_counts: bool = True,
-    dim_chunk: int = 16,
-) -> tuple[jax.Array, jax.Array | None]:
-    """XLA broadcast form: the CPU path and the Pallas kernel's oracle.
 
     Dims are split evenly across ``widths`` (reference: NDIM/4 per width).
     Tokens shorter than a width contribute the hash of their zero-padded
@@ -276,8 +127,7 @@ def fingerprint_xla(
         # every invalid position's gram with the position-0 gram (always
         # valid) — duplicating an existing element never changes a min, so
         # the per-dim reduction needs no select. This is the dominant-cost
-        # loop's hottest op: the workload is VPU-compute-bound, and the
-        # select was ~1/4 of the per-cell ops.
+        # loop's hottest op: the select would be ~1/4 of the per-cell ops.
         valid = pos <= jnp.maximum(lengths - w, 0)  # at least position 0
         g = jnp.where(valid, g, g[:, :1])
         n_dup = jnp.sum(~valid, axis=1, dtype=jnp.int32)[:, None]  # [B, 1]

@@ -2,16 +2,14 @@
 
 Reference workloads (``memory/bench.rs:110-396``): 256-byte LUT case-invert
 translate, memset/memcpy/memmove, and PRNG buffer fill (AES-CTR analog).
-TPU-native equivalents:
+Device equivalents:
 
-- ``lut_translate`` — a 256-entry table map. The portable path is a gather
-  (``jnp.take``); ``lut_translate_planes`` evaluates the table arithmetically
-  from its 32-entry planes with selects when gathers are slow on a backend.
+- ``lut_translate`` — a 256-entry table map as one gather (``jnp.take``).
 - ``fill`` / ``copy`` / ``move`` — XLA broadcast / device copy / shifted
   slice; they exist mostly to calibrate the memory roofline like the
   reference's memset/memcpy rows.
 - ``fill_random`` — counter-based Threefry bits via ``jax.random``; the
-  TPU-idiomatic analog of the reference's AES-CTR keystream
+  counter-based analog of the reference's AES-CTR keystream
   (``memory/bench.py:54-105``): reproducible, seekable, parallel.
 """
 
@@ -25,51 +23,10 @@ import numpy as np
 
 
 @jax.jit
-def lut_translate_gather(data: jax.Array, lut: jax.Array) -> jax.Array:
-    """``out[i] = lut[data[i]]`` as a plain gather — the natural XLA
-    formulation, but TPU u8 gathers run near-scalar (~0.1 G lookups/s
-    measured); kept as the CPU path and the conformance oracle."""
-    return jnp.take(lut, data.astype(jnp.int32))
-
-
 def lut_translate(data: jax.Array, lut: jax.Array) -> jax.Array:
-    """``out[i] = lut[data[i]]`` for a uint8 buffer and a 256-entry table.
-
-    Dispatches to the gather-free select-plane kernel on TPU (460× the
-    gather's measured throughput; ``memory/bench.rs:110-166`` is the
-    reference workload) and the plain gather elsewhere."""
-    if jax.default_backend() == "tpu":
-        return lut_translate_planes(data, lut)
-    return lut_translate_gather(data, lut)
-
-
-@jax.jit
-def lut_translate_planes(data: jax.Array, lut: jax.Array) -> jax.Array:
-    """Gather-free LUT: 8 bit-plane constants indexed by the low 5 bits via
-    select chain over the 8 32-entry table planes.
-
-    The byte is split as ``b = hi3 * 32 + lo5``; the 8 planes
-    ``lut[hi3*32 : hi3*32+32]`` are reduced with 8 selects on hi3, and the
-    final 32-way pick on lo5 is done with 5 shift-select levels over packed
-    u32 lanes of the chosen plane — ~20 vector ops/byte, no gather.
-    """
-    b = data.astype(jnp.int32)
-    hi3 = b >> 5
-    lo5 = b & 31
-    planes = lut.reshape(8, 32)
-    # Select the 32-byte plane per element, one lane at a time packed in u32:
-    # plane words [8, 8] u32 (4 table bytes per word).
-    words = jax.lax.bitcast_convert_type(planes.reshape(8, 8, 4), jnp.uint32)  # [8, 8]
-    word_idx = lo5 >> 2
-    byte_idx = (lo5 & 3).astype(jnp.uint32)
-    # Two-level select: first the plane (hi3), then the word (word_idx).
-    picked = jnp.zeros(b.shape, jnp.uint32)
-    for p in range(8):
-        row = jnp.zeros(b.shape, jnp.uint32)
-        for wi in range(8):
-            row = jnp.where(word_idx == wi, words[p, wi], row)
-        picked = jnp.where(hi3 == p, row, picked)
-    return ((picked >> (8 * byte_idx)) & jnp.uint32(0xFF)).astype(jnp.uint8)
+    """``out[i] = lut[data[i]]`` for a uint8 buffer and a 256-entry table
+    (``memory/bench.rs:110-166`` is the reference workload)."""
+    return jnp.take(lut, data.astype(jnp.int32))
 
 
 def invert_case_lut() -> np.ndarray:
@@ -109,6 +66,5 @@ def fill_random_words(seed, n: int) -> jax.Array:
 
 def fill_random(seed, n: int) -> np.ndarray:
     """Counter-based random bytes (the AES-CTR-keystream analog); device
-    generates u32 words, host views them as bytes (byte-wise bitcasts are
-    layout-hostile on TPU)."""
+    generates u32 words, host views them as bytes."""
     return np.asarray(fill_random_words(seed, n)).view(np.uint8)[:n]

@@ -1,30 +1,27 @@
-"""Bit-parallel Myers Levenshtein in Pallas (family K5 uniform fast path).
+"""Bit-parallel Myers Levenshtein as a Pallas kernel for the GPU (Triton).
 
-The anti-diagonal wavefront (``ops/similarity.py``) costs ~20 VPU ops per
-DP cell; the Myers/Hyyrö block algorithm computes 32 cells per int32
-lane-op — each lane carries one pair's 32-row block as vertical-delta
-bitvectors (VP/VN), and one column of the DP advances with ~20 bitwise
-ops per block (reference semantics: ``szs::LevenshteinDistances``,
-``similarities/bench.rs:330-347``; algorithm: G. Myers, JACM 1999;
-block form: Hyyrö 2003 — the same formulation Edlib/StringZilla use on
-CPU words; here the machine word is an i32 *lane* and the batch fills
-the 8x128 vector).
+The anti-diagonal wavefront (``ops/similarity.py``) updates one DP cell per
+lane and keeps its diagonals in device memory between steps. The
+Myers/Hyyrö block algorithm packs 32 DP rows of one pair into a u32 word
+and advances a whole DP column with ~17 word operations per word (G.
+Myers, JACM 1999; block form: Hyyrö 2003 — the formulation Edlib and
+StringZilla use on CPU words; reference semantics:
+``szs::LevenshteinDistances``, ``similarities/bench.rs:330-347``).
 
-Eq (pattern-vs-char match bitvector) is built on the fly from NBITS
-precomputed bitplanes — ``BP[bit][w]`` holds bit ``k`` set iff pattern
-char ``32w + k`` has byte-bit ``bit`` set — so a column's Eq is NBITS
-selects + ANDs instead of a per-lane gather (TPU-hostile) or a 32-way
-compare. A sentinel plane (bit NBITS-1, never set in real text) marks
-pattern padding, which therefore never matches and cannot disturb the
-tracked score row.
+Kernel shape (Pallas, ``backend="triton"``): one program owns a block of
+``BLOCK`` pairs, one pair per thread. The text-column loop runs inside the
+kernel; the vertical-delta words VP/VN of every pattern word and the
+running score stay in registers for the whole loop, and the carry chain
+across pattern words is unrolled per word. Each column loads the text
+code of every pair and gathers its pattern-match masks ``Peq[code][w]``
+(a few KB per block, cache-resident).
 
-Score tracking: D[m][j] advances by the horizontal delta at row m =
-bit (m-1)%32 of the UNSHIFTED Ph/Mh of word (m-1)//32, masked to
-columns j < |b| — per-pair lengths need no zoning.
+Staging compresses the batch alphabet to dense codes, so ``Peq`` holds
+one row per symbol that occurs (4 for DNA). Pattern bits past a pair's
+length are zero in every row, so padding never matches.
 
-Layout: batch tiles of SUB*128 = 1024 pairs; state planes [SUB, 128]
-u32. Grid = (batch tiles, column strips of JC); VP/VN/score live in
-VMEM scratch across a tile's column strips (sequential grid).
+Score tracking: D[m][j] advances by the horizontal delta at row m = bit
+(m-1)%32 of the unshifted Ph/Mh of word (m-1)//32, for columns j < |b|.
 """
 
 from __future__ import annotations
@@ -35,346 +32,186 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-SUB = 8  # sublanes per state plane -> 1024 pairs per batch tile
-LANES = 128
-TILE = SUB * LANES
-JC = 16  # text columns per grid step
-
-BYTE_BITS = 9  # bits 0..7 data + bit 8 pad sentinel
-CP_BITS = 22  # bits 0..20 codepoint + bit 21 pad sentinel
+BLOCK = 32  # pairs per program: one warp, one pair per thread
 
 
-def _make_kernel(n_words: int, nbits: int, n_js: int, last_word: int = -1):
-    def kernel(bp_ref, b_ref, blen_ref, lastw_ref, lastr_ref, alen_ref, out_ref, vp_ref, vn_ref, score_ref):
-        js = pl.program_id(1)
-
-        @pl.when(js == 0)
-        def _():
-            vp_ref[...] = jnp.full((n_words, SUB, LANES), 0xFFFFFFFF, jnp.uint32)
-            vn_ref[...] = jnp.zeros((n_words, SUB, LANES), jnp.uint32)
-            score_ref[...] = alen_ref[0]
-
-        blen = blen_ref[0]
-        lastw = lastw_ref[0]
-        lastr = lastr_ref[0].astype(jnp.uint32)
+def _make_kernel(n_words: int, sigma: int, n_cols: int, last_word: int):
+    def kernel(peq_ref, text_ref, alen_ref, blen_ref, out_ref):
+        blk = pl.program_id(0)
+        lane = jnp.arange(BLOCK, dtype=jnp.int32)
+        alen = alen_ref[blk * BLOCK + lane]
+        blen = blen_ref[blk * BLOCK + lane]
+        last = jnp.maximum(alen - 1, 0)
+        lastw = last >> 5
+        lastr = (last & 31).astype(jnp.uint32)
         one = jnp.uint32(1)
-        zero = jnp.uint32(0)
+        peq_base = blk * (sigma * n_words * BLOCK) + lane
+        text_base = blk * (n_cols * BLOCK) + lane
 
-        ones = jnp.full((SUB, LANES), 0xFFFFFFFF, jnp.uint32)
-        for jc in range(JC):
-            j = js * JC + jc
-            c = b_ref[0, jc]  # [SUB, LANES] int32
-            # XOR-mask Eq (see the loop kernel): bp ^ mn selects bp / ~bp.
-            mn = [
-                jnp.where(((c >> bit) & 1) == 1, jnp.uint32(0), ones)
-                for bit in range(nbits - 1)
-            ] + [ones]
-            score = score_ref[...]
-            hp_in = jnp.full((SUB, LANES), one)
-            hn_in = jnp.full((SUB, LANES), zero)
-            in_text = j < blen
+        def column(j, carry):
+            vp, vn, score = carry
+            code = text_ref[text_base + j * BLOCK]
+            row = peq_base + code * (n_words * BLOCK)
+            hp_in = jnp.full((BLOCK,), one)
+            hn_in = jnp.zeros((BLOCK,), jnp.uint32)
+            sel_ph = jnp.zeros((BLOCK,), jnp.uint32)
+            sel_mh = jnp.zeros((BLOCK,), jnp.uint32)
+            new_vp, new_vn = [], []
             for w in range(n_words):
-                eq = bp_ref[0, 0, w] ^ mn[0]
-                for bit in range(1, nbits):
-                    eq &= bp_ref[0, bit, w] ^ mn[bit]
-                vp = vp_ref[w]
-                vn = vn_ref[w]
-                xv = eq | vn
+                eq = peq_ref[row + w * BLOCK]
+                xv = eq | vn[w]
                 eq2 = eq | hn_in
-                x = eq2 & vp
-                xh = ((x + vp) ^ vp) | eq2
-                ph = vn | ~(xh | vp)
-                mh = vp & xh
-                hp_out = ph >> 31
-                hn_out = mh >> 31
-                # Score row m: horizontal delta = bit (m-1)%32 of the
-                # unshifted Ph/Mh of word (m-1)//32. When every pair's
-                # pattern ends in the same word (uniform lengths,
-                # ``last_word`` static) the tracking runs on that word
-                # only — ~6 vector ops saved on each other word.
-                if last_word < 0 or w == last_word:
-                    upd = in_text if w == last_word else (lastw == w) & in_text
-                    delta = ((ph >> lastr) & one).astype(jnp.int32) - (
-                        (mh >> lastr) & one
-                    ).astype(jnp.int32)
-                    score = score + jnp.where(upd, delta, 0)
+                xh = (((eq2 & vp[w]) + vp[w]) ^ vp[w]) | eq2
+                ph = vn[w] | ~(xh | vp[w])
+                mh = vp[w] & xh
+                if last_word < 0:
+                    sel_ph = jnp.where(lastw == w, ph, sel_ph)
+                    sel_mh = jnp.where(lastw == w, mh, sel_mh)
+                elif w == last_word:
+                    sel_ph, sel_mh = ph, mh
                 phs = (ph << 1) | hp_in
                 mhs = (mh << 1) | hn_in
-                vp_ref[w] = mhs | ~(xv | phs)
-                vn_ref[w] = phs & xv
-                hp_in = hp_out
-                hn_in = hn_out
-            score_ref[...] = score
+                new_vp.append(mhs | ~(xv | phs))
+                new_vn.append(phs & xv)
+                hp_in = ph >> 31
+                hn_in = mh >> 31
+            delta = ((sel_ph >> lastr) & one).astype(jnp.int32) - (
+                (sel_mh >> lastr) & one
+            ).astype(jnp.int32)
+            score = score + jnp.where(j < blen, delta, 0)
+            return tuple(new_vp), tuple(new_vn), score
 
-        @pl.when(js == n_js - 1)
-        def _():
-            out_ref[0] = score_ref[...]
+        vp0 = tuple(jnp.full((BLOCK,), 0xFFFFFFFF, jnp.uint32) for _ in range(n_words))
+        vn0 = tuple(jnp.zeros((BLOCK,), jnp.uint32) for _ in range(n_words))
+        _, _, score = jax.lax.fori_loop(0, n_cols, column, (vp0, vn0, alen))
+        # An empty pattern never updates the score; its distance is |b|.
+        out_ref[blk * BLOCK + lane] = jnp.where(alen == 0, blen, score)
 
     return kernel
 
 
-def _make_kernel_loop(n_words: int, nbits: int, n_js: int, last_word: int = -1):
-    """Loop-form twin of ``_make_kernel``: ``fori_loop`` over columns and
-    words with dynamic VMEM indexing instead of a ~4000-op full unroll.
-
-    Mosaic compile time scales with kernel body size — the unrolled form
-    takes tens of minutes server-side for wide shapes, which is worse than
-    the few % of runtime the loop counters cost.
-
-    When all patterns end in the same word (``last_word`` static >= 0)
-    the score tracking peels out of the word loop: untracked words run
-    ~6 vector ops lighter and only the peeled last word updates scores.
-    """
-
-    def kernel(bp_ref, b_ref, blen_ref, lastw_ref, lastr_ref, alen_ref, out_ref, vp_ref, vn_ref, score_ref):
-        js = pl.program_id(1)
-
-        @pl.when(js == 0)
-        def _():
-            vp_ref[...] = jnp.full((n_words, SUB, LANES), 0xFFFFFFFF, jnp.uint32)
-            vn_ref[...] = jnp.zeros((n_words, SUB, LANES), jnp.uint32)
-            score_ref[...] = alen_ref[0]
-
-        blen = blen_ref[0]
-        lastw = lastw_ref[0]
-        lastr = lastr_ref[0].astype(jnp.uint32)
-        one = jnp.uint32(1)
-        zero = jnp.uint32(0)
-
-        ones = jnp.full((SUB, LANES), 0xFFFFFFFF, jnp.uint32)
-
-        def col_body(jc, _):
-            j = js * JC + jc
-            c = b_ref[0, jc]  # [SUB, LANES] int32
-            in_text = j < blen
-            # Per-column XOR masks, hoisted out of the word loop: plane
-            # image bp ^ mn[bit] = bp where the text char has the bit set,
-            # ~bp otherwise; the pad-sentinel plane always inverts (a pad
-            # row never matches). Eq per word = nbits XORs + nbits-1 ANDs,
-            # vs 6 ops/bit/word for the unhoisted select form.
-            mn = [
-                jnp.where(((c >> bit) & 1) == 1, jnp.uint32(0), ones)
-                for bit in range(nbits - 1)
-            ] + [ones]
-
-            def advance(w, hp_in, hn_in):
-                """One word-block step; returns (ph, mh, hp_out, hn_out)."""
-                eq = bp_ref[0, 0, w] ^ mn[0]
-                for bit in range(1, nbits):
-                    eq &= bp_ref[0, bit, w] ^ mn[bit]
-                vp = vp_ref[w]
-                vn = vn_ref[w]
-                xv = eq | vn
-                eq2 = eq | hn_in
-                x = eq2 & vp
-                xh = ((x + vp) ^ vp) | eq2
-                ph = vn | ~(xh | vp)
-                mh = vp & xh
-                phs = (ph << 1) | hp_in
-                mhs = (mh << 1) | hn_in
-                vp_ref[w] = mhs | ~(xv | phs)
-                vn_ref[w] = phs & xv
-                return ph, mh, ph >> 31, mh >> 31
-
-            def delta_of(ph, mh):
-                return ((ph >> lastr) & one).astype(jnp.int32) - (
-                    (mh >> lastr) & one
-                ).astype(jnp.int32)
-
-            hp0 = jnp.full((SUB, LANES), one)
-            hn0 = jnp.full((SUB, LANES), zero)
-
-            if last_word >= 0:
-
-                def word_body(w, carry):
-                    hp_in, hn_in = carry
-                    _, _, hp_out, hn_out = advance(w, hp_in, hn_in)
-                    return hp_out, hn_out
-
-                hp, hn = jax.lax.fori_loop(0, last_word, word_body, (hp0, hn0))
-                ph, mh, _, _ = advance(last_word, hp, hn)
-                score_ref[...] = score_ref[...] + jnp.where(
-                    in_text, delta_of(ph, mh), 0
-                )
-            else:
-
-                def word_body(w, carry):
-                    hp_in, hn_in, score = carry
-                    ph, mh, hp_out, hn_out = advance(w, hp_in, hn_in)
-                    upd = (lastw == w) & in_text
-                    score = score + jnp.where(upd, delta_of(ph, mh), 0)
-                    return hp_out, hn_out, score
-
-                _, _, score = jax.lax.fori_loop(
-                    0, n_words, word_body, (hp0, hn0, score_ref[...])
-                )
-                score_ref[...] = score
-            return ()
-
-        jax.lax.fori_loop(0, JC, col_body, ())
-
-        @pl.when(js == n_js - 1)
-        def _():
-            out_ref[0] = score_ref[...]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("n_words", "nbits", "interpret", "loop", "last_word"))
-def _myers(bp, b_cols, blen, lastw, lastr, alen, n_words: int, nbits: int, interpret: bool = False, *, loop: bool = True, last_word: int = -1):
-    n_bt = bp.shape[0]
-    n_js = b_cols.shape[1] // JC
-    make = _make_kernel_loop if loop else _make_kernel
-    meta_spec = pl.BlockSpec((1, SUB, LANES), lambda bt, js: (bt, 0, 0))
+@functools.partial(
+    jax.jit, static_argnames=("n_words", "sigma", "last_word", "interpret")
+)
+def _myers(peq, text, alen, blen, *, n_words: int, sigma: int, last_word: int = -1,
+           interpret: bool = False):
+    """Distances of staged blocks: ``peq`` u32[n_blk, sigma*n_words*BLOCK],
+    ``text`` i32[n_blk, n_cols*BLOCK], ``alen``/``blen`` i32[n_blk, BLOCK]
+    -> i32[n_blk, BLOCK]. Leading axes are blocks, so ``shard_map`` can
+    split a batch across devices."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the Myers kernel compiles only for a GPU; pass interpret=True "
+            f"to emulate it on {jax.default_backend()!r}"
+        )
+    n_blk = peq.shape[0]
+    n_cols = text.shape[1] // BLOCK
     out = pl.pallas_call(
-        make(n_words, nbits, n_js, last_word),
-        grid=(n_bt, n_js),
-        in_specs=[
-            pl.BlockSpec((1, nbits, n_words, SUB, LANES), lambda bt, js: (bt, 0, 0, 0, 0)),
-            pl.BlockSpec((1, JC, SUB, LANES), lambda bt, js: (bt, js, 0, 0)),
-            meta_spec,
-            meta_spec,
-            meta_spec,
-            meta_spec,
-        ],
-        out_specs=meta_spec,
-        out_shape=jax.ShapeDtypeStruct((n_bt, SUB, LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((n_words, SUB, LANES), jnp.uint32),
-            pltpu.VMEM((n_words, SUB, LANES), jnp.uint32),
-            pltpu.VMEM((SUB, LANES), jnp.int32),
-        ],
+        _make_kernel(n_words, sigma, n_cols, last_word),
+        out_shape=jax.ShapeDtypeStruct((n_blk * BLOCK,), jnp.int32),
+        grid=(n_blk,),
         interpret=interpret,
-    )(bp, b_cols, blen, lastw, lastr, alen)
-    return out
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        name="myers_levenshtein",
+    )(peq.reshape(-1), text.reshape(-1), alen.reshape(-1), blen.reshape(-1))
+    return out.reshape(n_blk, BLOCK)
 
 
 class MyersBatch:
-    """Pairs staged for the Myers kernel (host-side layout + bitplanes)."""
+    """Pairs staged for the Myers kernel: dense symbol codes, per-pair
+    pattern-match masks and text columns, laid out block-major."""
 
-    def __init__(self, a: np.ndarray, b: np.ndarray, a_len: np.ndarray, b_len: np.ndarray, *, nbits: int = BYTE_BITS):
+    def __init__(self, a: np.ndarray, b: np.ndarray, a_len: np.ndarray, b_len: np.ndarray):
         B, A = a.shape
-        L = b.shape[1]
-        self.count = B
-        self.nbits = nbits
+        L = max(int(b.shape[1]), 1)
+        a_len = np.asarray(a_len, np.int64)
+        b_len = np.asarray(b_len, np.int64)
+        in_a = np.arange(A)[None, :] < a_len[:, None]
+        in_b = np.arange(b.shape[1])[None, :] < b_len[:, None]
+        alphabet, codes = np.unique(
+            np.concatenate([a[in_a], b[in_b], [0]]), return_inverse=True
+        )
+        code_a = np.zeros(a.shape, np.int64)
+        code_b = np.zeros(b.shape, np.int64)
+        code_a[in_a] = codes[: int(in_a.sum())]
+        code_b[in_b] = codes[int(in_a.sum()) : int(in_a.sum()) + int(in_b.sum())]
+        sigma = int(alphabet.shape[0])
         W = max(1, -(-A // 32))
-        self.n_words = W
-        pad_val = 1 << (nbits - 1)
-        n_bt = max(1, -(-B // TILE))
-        Bp = n_bt * TILE
-        Lp = -(-max(L, 1) // JC) * JC
+        n_blk = max(1, -(-B // BLOCK))
+        Bp = n_blk * BLOCK
 
-        ap = np.full((Bp, W * 32), pad_val, np.int64)
-        ap[:B, :A] = a
-        mask = np.arange(W * 32)[None, :] < np.concatenate([a_len, np.zeros(Bp - B, a_len.dtype)])[:, None]
-        ap = np.where(mask, ap, pad_val)
+        # Peq[p, code, w] |= 1 << (i % 32) for every pattern position i.
+        p_idx, i_idx = np.nonzero(in_a)
+        flat = (p_idx * sigma + code_a[p_idx, i_idx]) * W + i_idx // 32
+        bits = np.left_shift(1, i_idx % 32).astype(np.float64)
+        peq = np.bincount(flat, weights=bits, minlength=Bp * sigma * W)
+        peq = peq.astype(np.uint64).astype(np.uint32).reshape(n_blk, BLOCK, sigma, W)
+        self.peq = jnp.asarray(peq.transpose(0, 2, 3, 1).reshape(n_blk, -1))
 
-        weights = (1 << np.arange(32, dtype=np.uint64))[None, None, :]
-        planes = []
-        for bit in range(nbits):
-            bits = ((ap >> bit) & 1).astype(np.uint64).reshape(Bp, W, 32)
-            planes.append((bits * weights).sum(axis=2).astype(np.uint32))
-        bp = np.stack(planes, axis=1)  # [Bp, nbits, W]
-        bp = bp.reshape(n_bt, TILE, nbits, W).transpose(0, 2, 3, 1).reshape(n_bt, nbits, W, SUB, LANES)
+        text = np.zeros((Bp, L), np.int32)
+        text[:B, : b.shape[1]] = code_b
+        self.text = jnp.asarray(text.reshape(n_blk, BLOCK, L).transpose(0, 2, 1).reshape(n_blk, -1))
 
-        bpad = np.zeros((Bp, Lp), np.int32)
-        bpad[:B, :L] = b
-        b_cols = bpad.reshape(n_bt, TILE, Lp).transpose(0, 2, 1).reshape(n_bt, Lp, SUB, LANES)
-
-        def tile_meta(v, fill=0):
-            out = np.full(Bp, fill, np.int32)
+        def per_block(v):
+            out = np.zeros(Bp, np.int32)
             out[:B] = v
-            return out.reshape(n_bt, SUB, LANES)
+            return jnp.asarray(out.reshape(n_blk, BLOCK))
 
-        alen = np.asarray(a_len, np.int64)
-        blen = np.asarray(b_len, np.int64)
-        lastw = np.where(alen > 0, (alen - 1) // 32, -1).astype(np.int32)
-        lastr = np.where(alen > 0, (alen - 1) % 32, 0).astype(np.int32)
-        # Static specialization: all patterns end in one word -> the
-        # kernel peels score tracking out of the word loop.
-        self.last_word = int(lastw[0]) if (B > 0 and lastw.min() == lastw.max() and lastw[0] >= 0) else -1
+        self.alen = per_block(a_len)
+        self.blen = per_block(b_len)
+        self.count = B
+        self.n_words = W
+        self.sigma = sigma
+        lastw = np.where(a_len > 0, (a_len - 1) // 32, -1)
+        # Static specialization: every pattern ends in one word, so the
+        # kernel reads the score bit from that word alone.
+        self.last_word = int(lastw[0]) if (B and lastw.min() == lastw.max() >= 0) else -1
+        self._np_alen = a_len
+        self._np_blen = b_len
 
-        self.bp = jnp.asarray(bp)
-        self.b_cols = jnp.asarray(b_cols)
-        self.blen = jnp.asarray(tile_meta(blen))
-        self.lastw = jnp.asarray(tile_meta(lastw, fill=-1))
-        self.lastr = jnp.asarray(tile_meta(lastr))
-        self.alen = jnp.asarray(tile_meta(alen))
-        self._np_alen = alen
-        self._np_blen = blen
+    def arrays(self) -> tuple[jax.Array, ...]:
+        return self.peq, self.text, self.alen, self.blen
+
+    def statics(self) -> dict:
+        return {"n_words": self.n_words, "sigma": self.sigma, "last_word": self.last_word}
 
     def cells(self) -> int:
         return int((self._np_alen * self._np_blen).sum())
 
 
-def myers_distances(batch: MyersBatch, *, interpret: bool | None = None) -> np.ndarray:
-    """Levenshtein distance per pair -> int32[count]."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out = _myers(
-        batch.bp,
-        batch.b_cols,
-        batch.blen,
-        batch.lastw,
-        batch.lastr,
-        batch.alen,
-        batch.n_words,
-        batch.nbits,
-        interpret,
-        last_word=batch.last_word,
-    )
-    flat = np.asarray(out).reshape(-1)[: batch.count].astype(np.int64)
-    # Empty pattern: the kernel never updates score (lastw == -1); the
-    # distance is |b|.
-    alen = batch._np_alen[: batch.count]
-    blen = batch._np_blen[: batch.count]
-    return np.where(alen == 0, blen, flat)
+def myers_distances(batch: MyersBatch, *, interpret: bool = False) -> np.ndarray:
+    """Levenshtein distance per pair -> int64[count]."""
+    out = _myers(*batch.arrays(), **batch.statics(), interpret=interpret)
+    return np.asarray(out).reshape(-1)[: batch.count].astype(np.int64)
+
+
+def _pack(a_seqs, b_seqs) -> MyersBatch:
+    B = len(a_seqs)
+    A = max((len(t) for t in a_seqs), default=1)
+    L = max((len(t) for t in b_seqs), default=1)
+    a = np.zeros((B, max(A, 1)), np.int64)
+    b = np.zeros((B, max(L, 1)), np.int64)
+    a_len = np.zeros(B, np.int64)
+    b_len = np.zeros(B, np.int64)
+    for i, (x, y) in enumerate(zip(a_seqs, b_seqs)):
+        a[i, : len(x)] = x
+        b[i, : len(y)] = y
+        a_len[i], b_len[i] = len(x), len(y)
+    return MyersBatch(a, b, a_len, b_len)
 
 
 def myers_from_tokens(a_tokens: list[bytes], b_tokens: list[bytes]) -> MyersBatch:
-    """Byte-level staging from token lists.
-
-    Small joint alphabets compress to dense codes at staging time: Eq
-    construction costs one select+AND per bitplane per word-column, so a
-    DNA-class corpus (<= 4 distinct bytes → 3 planes incl. the pad
-    sentinel) does a third of the 9-plane byte work. Distances are
-    unchanged (codes are a bijection on the observed bytes)."""
-    B = len(a_tokens)
-    A = max((len(t) for t in a_tokens), default=1)
-    L = max((len(t) for t in b_tokens), default=1)
-    a = np.zeros((B, max(A, 1)), np.int32)
-    b = np.zeros((B, max(L, 1)), np.int32)
-    a_len = np.zeros(B, np.int32)
-    b_len = np.zeros(B, np.int32)
-    for i, (x, y) in enumerate(zip(a_tokens, b_tokens)):
-        a[i, : len(x)] = np.frombuffer(x, np.uint8)
-        b[i, : len(y)] = np.frombuffer(y, np.uint8)
-        a_len[i], b_len[i] = len(x), len(y)
-    alphabet = np.union1d(
-        np.unique(np.concatenate([t for t in (a.reshape(-1), b.reshape(-1))])), []
-    ).astype(np.int64)
-    if alphabet.size <= 16:
-        code = np.zeros(256, np.int32)
-        code[alphabet] = np.arange(alphabet.size, dtype=np.int32)
-        nbits = max(int(alphabet.size - 1).bit_length(), 1) + 1
-        return MyersBatch(code[a], code[b], a_len, b_len, nbits=nbits)
-    return MyersBatch(a, b, a_len, b_len, nbits=BYTE_BITS)
+    """Byte-level staging from token lists."""
+    return _pack(
+        [np.frombuffer(t, np.uint8) for t in a_tokens],
+        [np.frombuffer(t, np.uint8) for t in b_tokens],
+    )
 
 
 def myers_from_codepoints(a_cps: list[np.ndarray], b_cps: list[np.ndarray]) -> MyersBatch:
     """Codepoint-level staging (the LevenshteinDistancesUtf8 analog,
     ``similarities/bench.rs:230-247``; CUPS count codepoint cells)."""
-    B = len(a_cps)
-    A = max((len(t) for t in a_cps), default=1)
-    L = max((len(t) for t in b_cps), default=1)
-    a = np.zeros((B, max(A, 1)), np.int32)
-    b = np.zeros((B, max(L, 1)), np.int32)
-    a_len = np.zeros(B, np.int32)
-    b_len = np.zeros(B, np.int32)
-    for i, (x, y) in enumerate(zip(a_cps, b_cps)):
-        a[i, : len(x)] = x
-        b[i, : len(y)] = y
-        a_len[i], b_len[i] = len(x), len(y)
-    return MyersBatch(a, b, a_len, b_len, nbits=CP_BITS)
+    return _pack(a_cps, b_cps)

@@ -46,14 +46,12 @@ def _decomp_arrays(compat: bool):
 
 @functools.lru_cache(maxsize=None)
 def _decomp_rules(compat: bool, max_cp: int | None = None):
-    """Decomposition tables compiled to gather-free rule maps.
+    """Decomposition tables compiled to rule maps (``ops/rulemap``).
 
     (inline delta rules, expansion-length sparse map, per-position value
     maps e_0..e_{k-1}, static max expansion k, ccc step rules, max cp any
-    OUTPUT can take). ``max_cp`` prunes to the corpus codepoint ceiling —
-    the per-position maps are near-singleton (every decomposable cp has
-    its own chars), so pruning is what makes the row kernel affordable
-    (NFD full-Unicode ≈ 3k rules; ≤0x4FF ≈ 550)."""
+    OUTPUT can take). ``max_cp`` prunes to the corpus codepoint ceiling,
+    which shrinks the dense tables the maps gather from."""
     from stringwars_tpu.ops import rulemap
 
     inline, multi, pool = _decomp_arrays(compat)
@@ -183,67 +181,11 @@ def _reorder_argsort(out: jax.Array, ccc: jax.Array) -> jax.Array:
     return jnp.take(out, order)
 
 
-@functools.lru_cache(maxsize=None)
-def _decomp_fused_tables(compat: bool, max_cp: int):
-    """(prepare_tables result, max_exp) for the fused expand-compact
-    engine, or None when this corpus exceeds its envelope (expansion > 4
-    — NFD's UAX#15 ceiling, only long NFKD compat expansions — or a
-    non-BMP output)."""
-    from stringwars_tpu.ops.casefold_pallas import MAX_EXP, prepare_tables
-
-    inline, multi, pool = _decomp_arrays(compat)
-    S = max_cp + 1
-    cps = np.arange(S, dtype=np.int64)
-    inl = inline[:S].astype(np.int64)
-    mul = multi[:S].astype(np.int64)
-    is_multi = inl < 0
-    length = np.where(is_multi, mul & 31, 1)
-    max_exp = int(length.max())
-    if max_exp > MAX_EXP:
-        return None
-    off = mul >> 5
-    e1 = pool[np.clip(off, 0, pool.shape[0] - 1)].astype(np.int64)
-    exps = [
-        np.where(length >= k, pool[np.clip(off + k - 1, 0, pool.shape[0] - 1)], 0)
-        for k in range(2, max(max_exp, 2) + 1)
-    ]
-    v0 = np.where(is_multi, e1, inl)
-    if max(int(v0.max()), *(int(e.max()) for e in exps)) > 0xFFFF:
-        return None
-    t1 = (((v0 - cps) & 0xFFFF) | (length << 16)).astype(np.int32)
-    e2 = exps[0]
-    e3 = exps[1] if len(exps) >= 2 else np.zeros_like(e2)
-    t2 = (e2 | (e3 << 16)).astype(np.int32)
-    if max_exp <= 3:
-        return prepare_tables(t1, t2), max_exp
-    t3 = exps[2].astype(np.int32)
-    return prepare_tables(t1, t2, t3), max_exp
-
-
-def _decompose_rows_fused(cps, lengths, compat: bool, max_cp: int, interpret: bool):
-    """Fused-engine NFD/NFKD rows (see ops/casefold_pallas): LUT expand +
-    in-kernel compaction, then the row-local canonical reorder. Caller
-    guarantees ``_decomp_fused_tables`` returned an envelope hit."""
-    from stringwars_tpu.ops.casefold_pallas import expand_compact_rows
-
-    staged, max_exp = _decomp_fused_tables(compat, max_cp)
-    *_, ccc_rules, _ = _decomp_rules(compat, max_cp)
-    out, counts = expand_compact_rows(
-        cps, lengths, staged, max_exp, int(cps.shape[1]), False, interpret
-    )
-    return _canonical_reorder_rows(out, ccc_rules), counts
-
-
 @functools.partial(jax.jit, static_argnames=("compat", "max_cp"))
 def decompose_rows(
     cps: jax.Array, lengths: jax.Array, compat: bool = False, max_cp: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """NFD/NFKD of codepoint ROWS: (out int32[R, C*max_exp], counts[R]).
-
-    Rows whose width is a group size the fused expand-compact engine
-    supports (32/64 lanes, expansion <= 3, BMP outputs) take that Pallas
-    path; everything else runs the staged XLA pipeline below (also the
-    conformance oracle for the fused path).
 
     The benchmark-scale formulation (the flat ``decompose`` kernel's
     ``.at[dst].set`` scatter and whole-stream reorder measured
@@ -252,15 +194,9 @@ def decompose_rows(
     in the BMP), and canonical reordering runs row-locally — callers
     stage rows cut at starter boundaries (``ccc == 0``), which the
     UAX#15 reorder never crosses, so row-local == global. All table maps
-    are rule maps (zero gathers), pruned to ``max_cp``.
+    are rule maps pruned to ``max_cp``.
     """
     from stringwars_tpu.ops import rulemap
-
-    if max_cp is not None and cps.shape[1] in (32, 64) and max_cp <= 0xFFFF:
-        if _decomp_fused_tables(compat, max_cp) is not None:
-            return _decompose_rows_fused(
-                cps, lengths, compat, max_cp, jax.default_backend() != "tpu"
-            )
 
     inline_rules, mlen_rules, pos_maps, max_exp, ccc_rules, out_max = _decomp_rules(
         compat, max_cp
@@ -381,8 +317,8 @@ def _canonical_reorder(out: jax.Array) -> jax.Array:
     of adjacent compare-exchange passes converges in ~run-length
     iterations of cheap elementwise traffic. The previous formulation
     (two stable argsorts over the n·max_exp stream) was spec-equivalent
-    but ran at seconds-per-call on benchmark-scale streams: TPU argsort
-    over tens of millions of keys costs ~4 orders more than these passes.
+    but sorts tens of millions of keys where these passes touch each
+    element a handful of times.
     Equal CCC values never exchange, so stability is preserved.
 
     The fixpoint is capped at ``_REORDER_MAX_PASSES`` pass-pairs; a stream
@@ -503,12 +439,8 @@ def nfc_quick_check(cps: jax.Array, n: int, compat: bool = False) -> jax.Array:
 
 @functools.lru_cache(maxsize=None)
 def _inert_steps(compat: bool, max_cp: int | None = None):
-    """Inert table compiled to gather-free step rules (ops/rulemap).
-
-    ``max_cp`` prunes to the corpus ceiling — the quick check runs over
-    the WHOLE corpus every iteration, and the unpruned inert table is
-    855-1175 boundaries (~50 ms per 32 MB pass on-chip) vs ~111-137
-    at <=0x4FF."""
+    """Inert table compiled to step rules (ops/rulemap); ``max_cp``
+    prunes to the corpus ceiling."""
     from stringwars_tpu.ops.rulemap import compile_steps
 
     table = _inert_np(compat).astype(np.int32)
@@ -520,7 +452,7 @@ def _inert_steps(compat: bool, max_cp: int | None = None):
 
 def _rows_all_in_class(data: jax.Array, lengths: jax.Array, rules, table) -> jax.Array:
     """bool[B]: every codepoint of each UTF-8 row satisfies a compiled
-    boolean class table (rule map on TPU, gather elsewhere)."""
+    boolean class table."""
     from stringwars_tpu.ops.casefold import _decode_rows
     from stringwars_tpu.ops.rulemap import step_map
 
@@ -562,14 +494,12 @@ def rows_nfc_verbatim(
 ) -> jax.Array:
     """bool[B]: each UTF-8 row is verbatim its own NFC (NFKC w/ ``compat``).
 
-    The production NFC path on TPU — the UAX#15 quick check (QC=Yes and
+    The production NFC quick check — the UAX#15 quick check (QC=Yes and
     ccc==0 per codepoint) that real precomposed text passes, exactly the
     fast path ICU serves; rows that fail (combining marks, compat forms)
-    route through the exact compose kernels. The first round of this
-    kernel keyed on composition-INERTNESS instead, which misroutes all
-    precomposed Cyrillic/Latin-1 text into the sequential compose scan
-    (and a 32 MB multilingual corpus crashed the TPU worker with a
-    multi-million-step lax.scan).
+    route through the exact compose kernels. Keying on composition
+    inertness instead would misroute all precomposed Cyrillic/Latin-1
+    text into the sequential compose scan.
     """
     rules, table = _nfc_fast_steps(compat, max_cp)
     return _rows_all_in_class(data, lengths, rules, table)

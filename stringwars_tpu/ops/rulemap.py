@@ -1,37 +1,19 @@
 """Unicode table lookups: step-function / range-rule maps (K9/K10).
 
-XLA-level table gathers run near-scalar (~0.1 G lookups/s —
-PERFORMANCE.md finding #4), so per-codepoint class/fold lookups that
-used ``jnp.take(table, cps)`` are evaluated by one of two kernels,
-chosen by a cost model:
-
-- the **lane-gather LUT** (``ops/lut.py``): the dense table rides into
-  the kernel and each 128-entry window is one ``tpu.dynamic_gather``
-  (31-68 G lookups/s measured) — wins whenever the table is small
-  enough that ``windows + 3 < rules``;
-- the **rule walk** below: arithmetic over the table's RUN STRUCTURE —
-  wins for maps whose domain is huge but whose run count is small
-  (pruned sentence-break tables reaching 0x10FFFF, sparse BPE pair
-  keys).
-
-The walk formulation:
+Per-codepoint class and fold tables are stored compiled to their run
+structure, which ``prune`` can cut to a corpus' codepoint ceiling:
 
 - A dense class table (grapheme/word/sentence break classes, whitespace,
   pictographic, ...) is a step function: ``value(cp) = Σ_r dv_r · [cp >=
   start_r]`` over its run boundaries (21 runs for whitespace, ~1.7k for
-  grapheme classes). Three VPU ops per boundary, zero gathers.
+  grapheme classes).
 - The case-fold map is identity plus ~200 range rules (contiguous blocks
   with a constant delta, alternating-parity blocks, singletons):
   ``fold(cp) = cp + Σ_r d_r · [lo_r <= cp <= hi_r and parity matches]``.
 
-Both evaluate in one Pallas kernel: the codepoint block stays resident in
-VMEM while a ``fori_loop`` walks the rule arrays in SMEM — the input is
-read once from HBM regardless of rule count. A staging-time ``prune``
-keeps only the boundaries a corpus' observed codepoint range can hit
-(compile-per-corpus specialization), which collapses e.g. sentence-break
-from ~3.4k boundaries to ~100 for Latin/Greek/Cyrillic text.
-
-The XLA gather forms remain the CPU path and the conformance oracle.
+Both evaluate as one gather from the dense table they describe when it
+spans at most a few MB, else as a binary search over the rule boundaries.
+``range_map_ref`` keeps the literal per-rule sum as the test oracle.
 Reference workloads: ``tokenization/bench.rs:78-456`` (TR29/UAX#14
 segmentation), ``normalization/bench.rs:58-141`` (fold/normalize).
 """
@@ -39,19 +21,10 @@ segmentation), ``normalization/bench.rs:58-141`` (fold/normalize).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# VMEM-resident codepoint tile per grid step. 256 KB blocks: the original
-# (8, 1024) = 32 KB blocks measured DMA-overhead-bound (the German-fold
-# rule stage profiled 15.4 ms where op counts predicted ~3 — thousands of
-# tiny grid steps; the single-pass bytesum kernel hit the same wall).
-_BLOCK = (64, 1024)
 _MAX_CP = 0x110000
 
 
@@ -163,97 +136,9 @@ def compile_sparse_values(keys: np.ndarray, values: np.ndarray) -> FoldRules:
     return FoldRules(mk(lo), mk(hi), mk(dv), z, z.copy(), base=1)
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernels
-# ---------------------------------------------------------------------------
-
-def _step_kernel(n_rules: int):
-    def kernel(starts_ref, deltas_ref, cps_ref, out_ref):
-        cps = cps_ref[...]
-
-        def body(r, acc):
-            s = starts_ref[r]
-            dv = deltas_ref[r]
-            return acc + jnp.where(cps >= s, dv, 0)
-
-        out_ref[...] = jax.lax.fori_loop(0, n_rules, body, jnp.zeros_like(cps))
-
-    return kernel
-
-
-def _range_kernel(n_rules: int, add_base: bool):
-    def kernel(lo_ref, hi_ref, d_ref, pm_ref, pr_ref, cps_ref, out_ref):
-        cps = cps_ref[...]
-
-        def body(r, acc):
-            lo = lo_ref[r]
-            hi = hi_ref[r]
-            ok = (cps >= lo) & (cps <= hi) & ((cps & pm_ref[r]) == pr_ref[r])
-            return acc + jnp.where(ok, d_ref[r], 0)
-
-        acc = jax.lax.fori_loop(0, n_rules, body, jnp.zeros_like(cps))
-        out_ref[...] = (cps + acc) if add_base else acc
-
-    return kernel
-
-
-def _tile(cps_flat: jax.Array) -> tuple[jax.Array, tuple[int, ...]]:
-    n = cps_flat.shape[0]
-    per = _BLOCK[0] * _BLOCK[1]
-    rows = max(1, -(-n // per))
-    padded = jnp.pad(cps_flat, (0, rows * per - n))
-    return padded.reshape(rows * _BLOCK[0], _BLOCK[1]), n
-
-
-@functools.partial(jax.jit, static_argnames=("n_rules", "interpret"))
-def _step_call(starts, deltas, cps2d, n_rules: int, interpret: bool):
-    grid = (cps2d.shape[0] // _BLOCK[0],)
-    return pl.pallas_call(
-        _step_kernel(n_rules),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(_BLOCK, lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec(_BLOCK, lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(cps2d.shape, jnp.int32),
-        interpret=interpret,
-    )(starts, deltas, cps2d)
-
-
-@functools.partial(jax.jit, static_argnames=("n_rules", "add_base", "interpret"))
-def _range_call(lo, hi, d, pm, pr, cps2d, n_rules: int, add_base: bool, interpret: bool):
-    grid = (cps2d.shape[0] // _BLOCK[0],)
-    return pl.pallas_call(
-        _range_kernel(n_rules, add_base),
-        grid=grid,
-        in_specs=[
-            *[pl.BlockSpec(memory_space=pltpu.SMEM) for _ in range(5)],
-            pl.BlockSpec(_BLOCK, lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec(_BLOCK, lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(cps2d.shape, jnp.int32),
-        interpret=interpret,
-    )(lo, hi, d, pm, pr, cps2d)
-
-
-def _use_pallas(interpret: bool | None) -> tuple[bool, bool]:
-    """(use_pallas_kernel, interpret_flag)."""
-    if interpret is None:
-        return jax.default_backend() == "tpu", False
-    return True, interpret
-
-
-# --- lane-gather LUT route (ops/lut.py) ------------------------------------
-#
-# Cost model per 1024-element slab (measured, see ops/lut.py): the LUT
-# costs ~(windows + 3) op-units, the walk ~rules op-units.
-
-
-def _lut_wins(table_size: int, rules: int) -> bool:
-    n_win = -(-table_size // 128)
-    return (n_win + 3) < rules
+# Dense tables up to this many entries (4 MiB of int32) are gathered
+# directly; larger domains binary-search the rule boundaries instead.
+_DENSE_MAX = 1 << 20
 
 
 def _dense_delta_table(rules: FoldRules) -> np.ndarray:
@@ -271,75 +156,61 @@ def _dense_delta_table(rules: FoldRules) -> np.ndarray:
     return t.astype(np.int32)
 
 
-def step_map(cps: jax.Array, rules: StepRules, table: np.ndarray | None = None, *, interpret: bool | None = None) -> jax.Array:
+def step_map(cps: jax.Array, rules: StepRules, table: np.ndarray | None = None) -> jax.Array:
     """Evaluate a compiled step table over any-shape int codepoints.
 
-    On TPU: the Pallas boundary-walk kernel. Elsewhere: the plain gather
-    over ``table`` (pass it to avoid reconstruction) — fast on CPU and the
-    conformance oracle for the kernel.
+    A gather from the dense table (pass ``table`` to avoid rebuilding it)
+    when it spans at most ``_DENSE_MAX`` entries, else a binary search over
+    the run starts. Step functions are constant past their last boundary,
+    so clamping the index is exact for every cp the rules were pruned to.
     """
-    shape = cps.shape
     cps = cps.astype(jnp.int32)
-    pallas, interp = _use_pallas(interpret)
-    if not pallas:
-        if table is None:
-            table = expand_steps(rules)
-        return jnp.take(jnp.asarray(table, jnp.int32), cps)
     size = int(rules.starts[-1]) + 1 if rules.count else 1
-    if _lut_wins(size, rules.count):
-        # Step functions are constant past the last boundary, so clamped
-        # indices are exact for every cp.
-        from stringwars_tpu.ops.lut import lut_map
-
+    if size <= _DENSE_MAX:
         dense = expand_steps(rules, size) if table is None else np.asarray(table)[:size]
-        return lut_map(
-            jnp.clip(cps, 0, size - 1), dense,
-            interpret=interp if interpret is not None else None,
-        )
-    flat, n = _tile(cps.reshape(-1))
-    out = _step_call(
-        jnp.asarray(rules.starts), jnp.asarray(rules.deltas), flat, rules.count, interp
-    )
-    return out.reshape(-1)[:n].reshape(shape)
+        return jnp.take(jnp.asarray(dense, jnp.int32), jnp.clip(cps, 0, size - 1))
+    values = np.cumsum(rules.deltas.astype(np.int64)).astype(np.int32)
+    run = jnp.searchsorted(jnp.asarray(rules.starts), cps, side="right") - 1
+    return jnp.take(jnp.asarray(values), jnp.clip(run, 0, rules.count - 1))
 
 
-def range_map(cps: jax.Array, rules: FoldRules, *, interpret: bool | None = None) -> jax.Array:
+def range_map(cps: jax.Array, rules: FoldRules) -> jax.Array:
     """Evaluate compiled range rules (delta map when ``rules.base == 0``,
-    sparse value map when 1) over any-shape codepoints."""
-    shape = cps.shape
+    sparse value map when 1) over any-shape codepoints: a dense-table
+    gather, or a binary search over the (disjoint, sorted) rule ranges
+    when the table would exceed ``_DENSE_MAX`` entries."""
     cps = cps.astype(jnp.int32)
     if rules.count == 0:
-        # Fully-pruned rule sets (corpus below every rule) — Mosaic
-        # rejects zero-length SMEM operands, and there is nothing to do.
         return cps if rules.base == 0 else jnp.zeros_like(cps)
-    pallas, interp = _use_pallas(interpret)
-    if not pallas:
-        out = jnp.zeros_like(cps)
-        for r in range(rules.count):
-            ok = (
-                (cps >= int(rules.lo[r]))
-                & (cps <= int(rules.hi[r]))
-                & ((cps & int(rules.pmask[r])) == int(rules.par[r]))
-            )
-            out = out + jnp.where(ok, int(rules.delta[r]), 0)
-        return (cps + out) if rules.base == 0 else out
     size = int(rules.hi.max()) + 2
-    if _lut_wins(size, rules.count):
-        from stringwars_tpu.ops.lut import lut_map
-
-        acc = lut_map(
-            jnp.clip(cps, 0, size - 1),
-            _dense_delta_table(rules),
-            interpret=interp if interpret is not None else None,
+    if size <= _DENSE_MAX:
+        acc = jnp.take(jnp.asarray(_dense_delta_table(rules)), jnp.clip(cps, 0, size - 1))
+    else:
+        if np.any(rules.lo[1:] <= rules.hi[:-1]):
+            raise ValueError("range rules must be sorted and disjoint")
+        r = jnp.searchsorted(jnp.asarray(rules.lo), cps, side="right") - 1
+        rc = jnp.clip(r, 0, rules.count - 1)
+        ok = (
+            (r >= 0)
+            & (cps <= jnp.take(jnp.asarray(rules.hi), rc))
+            & ((cps & jnp.take(jnp.asarray(rules.pmask), rc)) == jnp.take(jnp.asarray(rules.par), rc))
         )
-        return (cps + acc) if rules.base == 0 else acc
-    flat, n = _tile(cps.reshape(-1))
-    out = _range_call(
-        jnp.asarray(rules.lo), jnp.asarray(rules.hi), jnp.asarray(rules.delta),
-        jnp.asarray(rules.pmask), jnp.asarray(rules.par),
-        flat, rules.count, rules.base == 0, interp,
-    )
-    return out.reshape(-1)[:n].reshape(shape)
+        acc = jnp.where(ok, jnp.take(jnp.asarray(rules.delta), rc), 0)
+    return (cps + acc) if rules.base == 0 else acc
+
+
+def range_map_ref(cps: jax.Array, rules: FoldRules) -> jax.Array:
+    """Test oracle for ``range_map``: one compare-and-add per rule."""
+    cps = cps.astype(jnp.int32)
+    out = jnp.zeros_like(cps)
+    for r in range(rules.count):
+        ok = (
+            (cps >= int(rules.lo[r]))
+            & (cps <= int(rules.hi[r]))
+            & ((cps & int(rules.pmask[r])) == int(rules.par[r]))
+        )
+        out = out + jnp.where(ok, int(rules.delta[r]), 0)
+    return (cps + out) if rules.base == 0 else out
 
 
 def expand_steps(rules: StepRules, size: int = _MAX_CP) -> np.ndarray:

@@ -5,25 +5,16 @@ Unicode WS chars), tokenize-newlines, tokenize-words-tr29,
 tokenize-graphemes-tr29, tokenize-sentences-tr29, tokenize-lines-uax14 —
 all counted as segments per pass over the corpus.
 
-TPU formulation: segmentation is a *boundary mask* problem. Codepoint
+Formulation: segmentation is a *boundary mask* problem. Codepoint
 classes come from replicated UCD tables (``unicode.tables``); every TR29
 pair rule becomes dense vector logic between shifted class lanes; the
 irregular parts (ignore-rules, RI parity, emoji ZWJ context, lookahead)
 use cumulative scans (cummax/segmented counts) instead of backtracking.
 Counts are mask sums; offsets are ``nonzero``-free (cumsum + scatter).
 
-Each kernel is split into a FEATURE stage (the prefix scans) and a shared
-elementwise RULES stage. Features have two implementations:
-
-- ``_*_feats_xla``: XLA ``associative_scan`` helpers — the CPU path and
-  the conformance oracle. At benchmark scale these compose ~15 log-depth
-  full-stream shift networks whose programs OOM-killed the server-side
-  TPU compile helper (campaign runs of 2026-08-18, 32-128 MB rows) and
-  cost ~10 HBM passes per scan.
-- ``_*_feats_scan``: ONE fused Pallas pass per direction through
-  ``ops/scanline`` — register-resident log-steps, SMEM carries across a
-  sequential grid, program size independent of stream length. The
-  production TPU path.
+Each kernel is split into a FEATURE stage (``_*_feats_xla``: blocked
+``associative_scan`` prefix scans) and an elementwise RULES stage that XLA
+fuses.
 """
 
 from __future__ import annotations
@@ -34,26 +25,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stringwars_tpu.ops.scanline import Op, elementwise_map, fused_scan
 from stringwars_tpu.ops.utf8 import utf8_decode
 from stringwars_tpu.unicode import tables
 
 _ASCII_WS = (9, 10, 11, 12, 13, 32)
 
 
-def _use_scanline(scanline: bool | None) -> bool:
-    """Feature-stage dispatch: fused Pallas scan pass on TPU, XLA
-    ``associative_scan`` helpers (the oracle) elsewhere. Resolved at trace
-    time like ``rulemap._use_pallas``; tests pass the flag explicitly."""
-    if scanline is None:
-        return jax.default_backend() == "tpu"
-    return scanline
-
-
 # ---------------------------------------------------------------------------
-# Gather-free building blocks (PERFORMANCE.md finding #4: TPU table gathers
-# run near-scalar). Class tables evaluate through ``ops/rulemap`` step
-# rules; positional "value at the last index where P" gathers evaluate as
+# Building blocks. Class tables evaluate through ``ops/rulemap`` step
+# maps; positional "value at the last index where P" lookups evaluate as
 # last-valid-value associative scans.
 # ---------------------------------------------------------------------------
 
@@ -64,9 +44,8 @@ def _assoc_scan(comb, xs):
     """``jax.lax.associative_scan`` for huge 1-D streams, evaluated as a
     two-level blocked scan: per-row scans over a [R, 1024] reshape plus a
     tiny carry scan over the R row tails. XLA's log-depth lowering of a
-    whole-stream 1-D scan at 64-128 MB scale produces programs the
-    server-side TPU compiler takes minutes (or is OOM-killed) on; the
-    blocked form compiles as small, cleanly-tiled 2-D ops.
+    whole-stream 1-D scan at 64-128 MB scale produces very large
+    programs; the blocked form compiles as small 2-D ops.
 
     ``comb`` must be associative over the pytree elements (the same
     contract as ``associative_scan``); zero-padding the tail is safe
@@ -122,9 +101,8 @@ def _steps(table_name: str, max_cp: int | None = None):
 
 
 def _class_of(cps: jax.Array, table_name: str, max_cp: int | None = None) -> jax.Array:
-    """Rule-map class lookup; ``max_cp`` (static, from staging) prunes the
-    boundary walk to the corpus' observed codepoint range — e.g. sentence
-    classes drop from ~3.4k boundaries to ~100 on Latin/Greek/Cyrillic."""
+    """Class-table lookup; ``max_cp`` (static, from staging) prunes the
+    table to the corpus' observed codepoint range."""
     from stringwars_tpu.ops.rulemap import step_map
 
     rules, table = _steps(table_name, max_cp)
@@ -132,14 +110,18 @@ def _class_of(cps: jax.Array, table_name: str, max_cp: int | None = None) -> jax
 
 
 def _last_value(values: jax.Array, mask: jax.Array, init) -> jax.Array:
-    """out[i] = values[j] for the largest j <= i with mask[j], else init."""
-    def comb(a, b):
-        av, af = a
-        bv, bf = b
-        return jnp.where(bf, bv, av), af | bf
+    """out[i] = values[j] for the largest j <= i with mask[j], else init.
 
-    v, f = _assoc_scan(comb, (jnp.where(mask, values, 0), mask))
-    return jnp.where(f, v, init)
+    One max-scan over positions plus a gather: cheaper to compile and run
+    than scanning (value, flag) pairs."""
+    idx = _last_index(mask)
+    return jnp.where(idx >= 0, jnp.take(values, jnp.maximum(idx, 0)), init)
+
+
+def _last_index(mask: jax.Array) -> jax.Array:
+    """Largest j <= i with mask[j], else -1."""
+    pos = jnp.arange(mask.shape[0], dtype=jnp.int32)
+    return _assoc_scan(jnp.maximum, jnp.where(mask, pos, -1))
 
 
 def _next_value(values: jax.Array, mask: jax.Array, init) -> jax.Array:
@@ -151,7 +133,7 @@ def _byte_space(data: jax.Array, n: int):
     """(cp, is_lead, count): codepoints AT their lead-byte positions.
 
     Segmentation runs entirely in byte-position space — the compaction
-    scatter ``utf8_decode`` pays (serializing on TPU) never happens; all
+    scatter ``utf8_decode`` pays never happens; all
     per-codepoint logic is masked to lead positions and neighbor access
     goes through ``_prev1`` / last-value scans.
     """
@@ -186,51 +168,29 @@ def _first_lead(is_lead: jax.Array) -> jax.Array:
 
 
 def _last_two_values(values: jax.Array, mask: jax.Array, init) -> tuple[jax.Array, jax.Array]:
-    """(last, second_to_last) masked values at or before each position.
-
-    The ≤2-suffix monoid: carriers (last, prev, count<=2) compose
-    associatively, so one ``associative_scan`` replaces the chained
-    positional gathers of the two-back TR29 rules (WB7/7c/11, SB7)."""
-    cnt0 = mask.astype(jnp.int32)
-    v = jnp.where(mask, values, 0)
-
-    def comb(a, b):
-        al, ap, ac = a
-        bl, bp, bc = b
-        last = jnp.where(bc >= 1, bl, al)
-        prev = jnp.where(bc >= 2, bp, jnp.where(bc == 1, al, ap))
-        return last, prev, jnp.minimum(ac + bc, 2)
-
-    last, prev, cnt = _assoc_scan(comb, (v, jnp.zeros_like(v), cnt0))
-    return (
-        jnp.where(cnt >= 1, last, init),
-        jnp.where(cnt >= 2, prev, init),
-    )
+    """(last, second_to_last) masked values at or before each position
+    (the two-back context of the TR29 rules WB7/7c/11, SB7)."""
+    last = _last_index(mask)
+    # The masked position before ``last`` is the last one at or before
+    # ``last - 1``.
+    prev = jnp.where(last >= 1, jnp.take(last, jnp.maximum(last - 1, 0)), -1)
+    pick = lambda idx: jnp.where(idx >= 0, jnp.take(values, jnp.maximum(idx, 0)), init)  # noqa: E731
+    return pick(last), pick(prev)
 
 
 # ---------------------------------------------------------------------------
 # Whitespace / newline splitting
 # ---------------------------------------------------------------------------
 
-_WS_OPS = (
-    Op("last", "ltok", lambda e: (e["tok"], e["lead"])),
-    Op("delay", "ptok", lambda e: e["ltok"]),
-)
-
-
-@functools.partial(jax.jit, static_argnames=("n", "max_cp", "scanline"))
+@functools.partial(jax.jit, static_argnames=("n", "max_cp"))
 def whitespace_token_count(
-    data: jax.Array, n: int, *, max_cp: int | None = None, scanline: bool | None = None
+    data: jax.Array, n: int, *, max_cp: int | None = None
 ) -> jax.Array:
     """Count of runs of non-whitespace codepoints (Unicode White_Space)."""
     cp, is_lead, _count = _byte_space(data, n)
     is_ws = _class_of(cp, "whitespace_table", max_cp).astype(bool)
     tok = is_lead & ~is_ws
-    if _use_scanline(scanline):
-        feats = fused_scan({"tok": tok, "lead": is_lead}, _WS_OPS, n)
-        prev_tok = feats["ptok"] > 0
-    else:
-        prev_tok = _prev1(tok, is_lead, False)
+    prev_tok = _prev1(tok, is_lead, False)
     return jnp.sum((tok & ~prev_tok).astype(jnp.int32), dtype=jnp.int32)
 
 
@@ -290,55 +250,9 @@ def _graph_feats_xla(cls, pict, incb, is_lead, n):
     }
 
 
-_GRAPH_OPS = (
-    Op("last", "lcls", lambda e: (e["cls"], e["lead"])),
-    Op("delay", "prev", lambda e: e["lcls"]),
-    Op("sum", "s", lambda e: e["ri"]),
-    Op("max", "base", lambda e: jnp.where((e["ri"] == 0) & (e["lead"] > 0), e["s"], 0)),
-    Op("last", "lrr", lambda e: (e["s"] - e["base"], e["lead"])),
-    Op("delay", "ri_run_prev", lambda e: e["lrr"]),
-    Op("last", "pe", lambda e: (e["pict"], e["nonext"])),
-    Op("last", "lpe", lambda e: (e["pe"], e["lead"])),
-    Op("delay", "pe1", lambda e: e["lpe"]),
-    Op("last", "lpe1", lambda e: (e["pe1"], e["lead"])),
-    Op("delay", "pe_before_zwj", lambda e: e["lpe1"]),
-    Op("last", "lctl", lambda e: (e["ctl"], e["lead"])),
-    Op("delay", "ctl_prev", lambda e: e["lctl"]),
-    Op("sum", "linker_cum", lambda e: e["lnk"]),
-    Op("last", "lincb", lambda e: (e["incb"], e["nel"]), init=-1),
-    Op("last", "l2incb", lambda e: (e["lincb"], e["lead"]), init=-1),
-    Op("delay", "incb_at_j", lambda e: e["l2incb"], init=-1),
-    Op("last", "lcum", lambda e: (e["linker_cum"], e["nel"])),
-    Op("last", "l2cum", lambda e: (e["lcum"], e["lead"])),
-    Op("delay", "cum_at_j", lambda e: e["l2cum"]),
-    Op("last", "llc", lambda e: (e["linker_cum"], e["lead"])),
-    Op("delay", "linker_at_prev", lambda e: e["llc"]),
-    Op("sum", "lead_ord", lambda e: e["lead"]),
-)
-
-
-def _graph_feats_scan(cls, pict, incb, is_lead, n):
-    G = _G
-    return fused_scan(
-        {
-            "cls": cls,
-            "lead": is_lead,
-            "pict": pict,
-            "incb": incb,
-            "ri": cls == G["Regional_Indicator"],
-            "nonext": (cls != G["Extend"]) & is_lead,
-            "ctl": (cls == G["Control"]) | (cls == G["CR"]) | (cls == G["LF"]),
-            "lnk": incb == 2,
-            "nel": ~((incb == 1) | (incb == 2)) & is_lead,
-        },
-        _GRAPH_OPS,
-        n,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("n", "max_cp", "scanline"))
+@functools.partial(jax.jit, static_argnames=("n", "max_cp"))
 def grapheme_boundaries(
-    data: jax.Array, n: int, *, max_cp: int | None = None, scanline: bool | None = None
+    data: jax.Array, n: int, *, max_cp: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """(boundary bool[n], cluster_count) over ``data[:n]`` (UTF-8).
 
@@ -351,12 +265,7 @@ def grapheme_boundaries(
     incb = jnp.where(is_lead, _class_of(cp, "incb_table", max_cp), _CONT)
     G = _G
 
-    use_scan = _use_scanline(scanline)
-    feats = (
-        _graph_feats_scan(cls, pict, incb, is_lead, n)
-        if use_scan
-        else _graph_feats_xla(cls, pict, incb, is_lead, n)
-    )
+    feats = _graph_feats_xla(cls, pict, incb, is_lead, n)
     env = {
         "cls": cls,
         "pict": pict,
@@ -371,10 +280,6 @@ def grapheme_boundaries(
         "linker_at_prev": feats["linker_at_prev"],
         "lead_ord": feats["lead_ord"],
     }
-    # Rules evaluate as plain XLA elementwise here: this kernel's rule
-    # surface fuses well (measured ~18% FASTER than the Pallas
-    # elementwise evaluator, which pays one extra full feature read);
-    # only the linebreak kernel's ~70-term surface needs the evaluator.
     boundary = _graph_rules(env) > 0
     return boundary, jnp.sum(boundary.astype(jnp.int32), dtype=jnp.int32)
 
@@ -474,48 +379,9 @@ def _word_feats_xla(cls, keep, is_lead, newline, ri, basemask, n):
     }
 
 
-_WORD_OPS_FWD = (
-    Op("last2", "lc", lambda e: (e["cls"], e["keep"]), init=-1),
-    Op("delay", "prev_eff", lambda e: e["lc"], init=-1),
-    Op("delay", "prev2_eff", lambda e: e["lc2"], init=-1),
-    Op("last", "lraw", lambda e: (e["cls"], e["lead"])),
-    Op("delay", "prev_raw", lambda e: e["lraw"]),
-    Op("last", "lnl", lambda e: (e["nl"], e["lead"])),
-    Op("delay", "prev_is_nl", lambda e: e["lnl"]),
-    Op("sum", "s", lambda e: e["ri"]),
-    Op("max", "base", lambda e: jnp.where(e["basemask"] > 0, e["s"], 0)),
-    Op("last", "lrr", lambda e: (e["s"] - e["base"], e["keep"])),
-    Op("delay", "ri_run_prev_eff", lambda e: e["lrr"]),
-    Op("sum", "lead_ord", lambda e: e["lead"]),
-)
-
-_WORD_OPS_BWD = (
-    Op("last", "nc", lambda e: (e["cls"], e["keep"]), init=-1),
-    Op("delay", "next_eff", lambda e: e["nc"], init=-1),
-)
-
-
-def _word_feats_scan(cls, keep, is_lead, newline, ri, basemask, n):
-    feats = fused_scan(
-        {
-            "cls": cls,
-            "keep": keep,
-            "lead": is_lead,
-            "nl": newline,
-            "ri": ri,
-            "basemask": basemask,
-        },
-        _WORD_OPS_FWD,
-        n,
-    )
-    bwd = fused_scan({"cls": cls, "keep": keep}, _WORD_OPS_BWD, n, reverse=True)
-    feats["next_eff"] = bwd["next_eff"]
-    return feats
-
-
-@functools.partial(jax.jit, static_argnames=("n", "max_cp", "scanline"))
+@functools.partial(jax.jit, static_argnames=("n", "max_cp"))
 def word_boundaries(
-    data: jax.Array, n: int, *, max_cp: int | None = None, scanline: bool | None = None
+    data: jax.Array, n: int, *, max_cp: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """(boundary bool[n], word_segment_count) per TR29 word rules.
 
@@ -534,9 +400,7 @@ def word_boundaries(
     ri = (cls == W["Regional_Indicator"]) & ~ignore
     basemask = ~ri & ~ignore & is_lead
 
-    use_scan = _use_scanline(scanline)
-    feats_fn = _word_feats_scan if use_scan else _word_feats_xla
-    feats = feats_fn(cls, keep, is_lead, newline, ri, basemask, n)
+    feats = _word_feats_xla(cls, keep, is_lead, newline, ri, basemask, n)
     env = {
         "cls": cls,
         "pict": pict,
@@ -549,18 +413,12 @@ def word_boundaries(
         "ri_run_prev_eff": feats["ri_run_prev_eff"],
         "lead_ord": feats["lead_ord"],
     }
-    # Rules evaluate as plain XLA elementwise here: this kernel's rule
-    # surface fuses well (measured ~18% FASTER than the Pallas
-    # elementwise evaluator, which pays one extra full feature read);
-    # only the linebreak kernel's ~70-term surface needs the evaluator.
     boundary = _word_rules(env) > 0
     return boundary, jnp.sum(boundary.astype(jnp.int32), dtype=jnp.int32)
 
 
 def _word_rules(e):
-    """TR29 word pair rules — elementwise over the feature env (runs both
-    on full arrays and inside the Pallas elementwise evaluator, where XLA
-    left ~30 materialized full-stream passes)."""
+    """TR29 word pair rules — elementwise over the feature env."""
     W = _W
     cls = e["cls"]
     is_lead = e["lead"] > 0
@@ -632,15 +490,6 @@ def word_segments(text: str) -> list[str]:
 _S = {name: i for i, name in enumerate(tables.SB_VALUES)}
 
 
-def _sent_eff_env(e):
-    """Effective class (SB5 attachment) derived from scan-env entries."""
-    return jnp.where(
-        (e["ign"] > 0) & (e["pk"] > 0) & (e["hk"] > 0),
-        jnp.int32(_S["Other"]),
-        e["effraw"],
-    )
-
-
 def _sent_feats_xla(cls, keep, is_lead, ign, parasep, n):
     S = _S
     eff = _last_value(cls, keep, jnp.int32(S["Other"]))
@@ -673,61 +522,9 @@ def _sent_feats_xla(cls, keep, is_lead, ign, parasep, n):
     }
 
 
-_SENT_OPS_FWD = None  # built lazily: needs _S at module-import completion
-
-
-def _sent_ops_fwd():
-    global _SENT_OPS_FWD
-    if _SENT_OPS_FWD is None:
-        S = _S
-        other = S["Other"]
-        _SENT_OPS_FWD = (
-            Op("last", "effraw", lambda e: (e["cls"], e["keep"]), init=other),
-            Op("last", "pk", lambda e: (e["ps"], e["keep"])),
-            Op("max", "hk", lambda e: e["keep"]),
-            Op("last", "fctx", lambda e: (
-                _sent_eff_env(e), (_sent_eff_env(e) != S["Close"]) & (e["lead"] > 0)
-            ), init=other),
-            Op("last", "gctx", lambda e: (
-                e["fctx"], (_sent_eff_env(e) != S["Sp"]) & (e["lead"] > 0)
-            ), init=other),
-            Op("delay", "ctx_cls", lambda e: e["gctx"], init=other),
-            Op("delay", "ctx9_cls", lambda e: e["fctx"], init=other),
-            Op("last", "lraw", lambda e: (e["cls"], e["lead"]), init=other),
-            Op("delay", "prev_raw", lambda e: e["lraw"], init=other),
-            Op("last", "leff", lambda e: (_sent_eff_env(e), e["lead"]), init=other),
-            Op("delay", "prev_eff", lambda e: e["leff"], init=other),
-            Op("last2", "l2", lambda e: (e["cls"], e["keep"]), init=other),
-            Op("delay", "prev2_eff", lambda e: e["l22"], init=other),
-            Op("last", "lps", lambda e: (e["ps"], e["lead"])),
-            Op("delay", "prev_parasep", lambda e: e["lps"]),
-            Op("sum", "lead_ord", lambda e: e["lead"]),
-        )
-    return _SENT_OPS_FWD
-
-
-def _sent_feats_scan(cls, keep, is_lead, ign, parasep, n):
-    feats = fused_scan(
-        {"cls": cls, "keep": keep, "lead": is_lead, "ign": ign, "ps": parasep},
-        _sent_ops_fwd(),
-        n,
-    )
-    feats["eff"] = jnp.where(
-        ign & (feats["pk"] > 0) & (feats["hk"] > 0),
-        jnp.int32(_S["Other"]),
-        feats["effraw"],
-    )
-    return feats
-
-
-_SENT_OPS_BWD = (
-    Op("last", "next_stop_cls", lambda e: (e["eff"], e["stop"]), init=_S["Other"]),
-)
-
-
-@functools.partial(jax.jit, static_argnames=("n", "max_cp", "scanline"))
+@functools.partial(jax.jit, static_argnames=("n", "max_cp"))
 def sentence_boundaries(
-    data: jax.Array, n: int, *, max_cp: int | None = None, scanline: bool | None = None
+    data: jax.Array, n: int, *, max_cp: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """(boundary bool[n], sentence_count) per TR29 sentence rules."""
     cp, is_lead, count = _byte_space(data, n)
@@ -738,9 +535,7 @@ def sentence_boundaries(
     parasep = (cls == S["Sep"]) | (cls == S["CR"]) | (cls == S["LF"])
     keep = ~ign & is_lead
 
-    use_scan = _use_scanline(scanline)
-    feats_fn = _sent_feats_scan if use_scan else _sent_feats_xla
-    feats = feats_fn(cls, keep, is_lead, ign, parasep, n)
+    feats = _sent_feats_xla(cls, keep, is_lead, ign, parasep, n)
     eff = feats["eff"]
 
     # Forward scan for SB8: first "stopper" at/after cur is Lower?
@@ -748,16 +543,7 @@ def sentence_boundaries(
         (eff == S["OLetter"]) | (eff == S["Upper"]) | (eff == S["Lower"])
         | parasep | (eff == S["ATerm"]) | (eff == S["STerm"])
     )
-    if use_scan:
-        bwd = fused_scan(
-            {"eff": eff, "stop": stopper & is_lead},
-            _SENT_OPS_BWD,
-            n,
-            reverse=True,
-        )
-        next_stop_cls = bwd["next_stop_cls"]
-    else:
-        next_stop_cls = _next_value(eff, stopper & is_lead, jnp.int32(S["Other"]))
+    next_stop_cls = _next_value(eff, stopper & is_lead, jnp.int32(S["Other"]))
 
     env = {
         "cls": cls,
@@ -772,18 +558,13 @@ def sentence_boundaries(
         "prev_parasep": feats["prev_parasep"],
         "lead_ord": feats["lead_ord"],
     }
-    # Rules evaluate as plain XLA elementwise here: this kernel's rule
-    # surface fuses well (measured ~18% FASTER than the Pallas
-    # elementwise evaluator, which pays one extra full feature read);
-    # only the linebreak kernel's ~70-term surface needs the evaluator.
     boundary = _sent_rules(env) > 0
     return boundary, jnp.sum(boundary.astype(jnp.int32), dtype=jnp.int32)
 
 
 def _sent_rules(e):
     """TR29 sentence rules (SB3-SB11), lowest to highest precedence —
-    elementwise over the feature env (full arrays on CPU, tile-resident
-    in the Pallas evaluator on TPU)."""
+    elementwise over the feature env."""
     S = _S
     cls = e["cls"]
     is_lead = e["lead"] > 0
@@ -797,9 +578,7 @@ def _sent_rules(e):
     aterm_ctx = ctx_cls == S["ATerm"]
     saterm_ctx9 = (ctx9_cls == S["ATerm"]) | (ctx9_cls == S["STerm"])
 
-    # SB998: no break; build from lowest to highest precedence. The
-    # chain runs in int32 0/1 — Mosaic rejects select chains that
-    # truncate to 1-bit vectors ("Unsupported target bitwidth").
+    # SB998: no break; build from lowest to highest precedence.
     one, zero = jnp.int32(1), jnp.int32(0)
     boundary = jnp.zeros_like(cls)
     # SB11: SATerm Close* Sp* ÷ (anything not matched below).
@@ -915,72 +694,9 @@ def _lb_feats_xla(cls, cm, hard, base_mask, is_lead, n):
     }
 
 
-_LB_OPS_FWD = None
-_LB_OPS_BWD = None
-
-
-def _lb_eff_env(e, L):
-    attached = (e["cm"] > 0) & (e["has_base"] > 0) & (e["hard_at_base"] == 0)
-    return jnp.where(
-        e["cm"] > 0,
-        jnp.where(attached, e["base_cls"], jnp.int32(L["AL"])),
-        e["cls"],
-    )
-
-
-def _lb_ops():
-    global _LB_OPS_FWD, _LB_OPS_BWD
-    if _LB_OPS_FWD is None:
-        L = _lb_classes()
-        bk, al = L["BK"], L["AL"]
-        sp, ri_c = L["SP"], L["RI"]
-        _LB_OPS_FWD = (
-            Op("last", "base_cls", lambda e: (e["cls"], e["basemask"]), init=al),
-            Op("max", "has_base", lambda e: e["basemask"]),
-            Op("last", "hard_at_base", lambda e: (e["hard"], e["basemask"])),
-            # eff computed ONCE per tile; later ops reference the env entry.
-            Op("id", "effv", functools.partial(_lb_eff_env, L=L)),
-            Op("last", "lraw", lambda e: (e["cls"], e["lead"]), init=bk),
-            Op("delay", "prev_raw", lambda e: e["lraw"], init=bk),
-            Op("last", "leff", lambda e: (e["effv"], e["lead"]), init=bk),
-            Op("delay", "prev", lambda e: e["leff"], init=bk),
-            Op("last", "lbsp", lambda e: (e["effv"], (e["effv"] != sp) & (e["lead"] > 0)), init=bk),
-            Op("delay", "before_sp", lambda e: e["lbsp"], init=bk),
-            Op("last", "lprev2", lambda e: (e["prev"], e["lead"]), init=bk),
-            Op("delay", "prev2", lambda e: e["lprev2"], init=bk),
-            Op("sum", "s", lambda e: (e["effv"] == ri_c)),
-            Op("max", "sbase", lambda e: jnp.where((e["effv"] != ri_c) & (e["lead"] > 0), e["s"], 0)),
-            Op("last", "lrr", lambda e: (e["s"] - e["sbase"], e["lead"])),
-            Op("delay", "ri_run_prev", lambda e: e["lrr"]),
-            Op("sum", "lead_ord", lambda e: e["lead"]),
-        )
-        _LB_OPS_BWD = (
-            Op("last", "nv", lambda e: (e["eff"], e["lead"]), init=bk),
-            Op("delay", "nxt", lambda e: e["nv"], init=bk),
-        )
-    return _LB_OPS_FWD, _LB_OPS_BWD
-
-
-def _lb_feats_scan(cls, cm, hard, base_mask, is_lead, n):
-    L = _lb_classes()
-    fwd_ops, bwd_ops = _lb_ops()
-    feats = fused_scan(
-        {"cls": cls, "cm": cm, "hard": hard, "basemask": base_mask, "lead": is_lead},
-        fwd_ops,
-        n,
-    )
-    attached = cm & (feats["has_base"] > 0) & (feats["hard_at_base"] == 0)
-    eff = jnp.where(cm, jnp.where(attached, feats["base_cls"], jnp.int32(L["AL"])), cls)
-    feats["attached"] = attached
-    feats["eff"] = eff
-    bwd = fused_scan({"eff": eff, "lead": is_lead}, bwd_ops, n, reverse=True)
-    feats["nxt"] = bwd["nxt"]
-    return feats
-
-
-@functools.partial(jax.jit, static_argnames=("n", "max_cp", "scanline"))
+@functools.partial(jax.jit, static_argnames=("n", "max_cp"))
 def linebreak_opportunities(
-    data: jax.Array, n: int, *, max_cp: int | None = None, scanline: bool | None = None
+    data: jax.Array, n: int, *, max_cp: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """(break_allowed bool[n], opportunity_count) per UAX#14 core rules.
 
@@ -1009,9 +725,7 @@ def linebreak_opportunities(
     )
     base_mask = ~cm & is_lead
 
-    use_scan = _use_scanline(scanline)
-    feats_fn = _lb_feats_scan if use_scan else _lb_feats_xla
-    feats = feats_fn(cls, cm, hard, base_mask, is_lead, n)
+    feats = _lb_feats_xla(cls, cm, hard, base_mask, is_lead, n)
     env = {
         "cls": cls,
         "lead": is_lead,
@@ -1025,17 +739,12 @@ def linebreak_opportunities(
         "nxt": feats["nxt"],
         "lead_ord": feats["lead_ord"],
     }
-    if use_scan:
-        breaks = elementwise_map(env, _lb_rules, n) > 0
-    else:
-        breaks = _lb_rules(env) > 0
+    breaks = _lb_rules(env) > 0
     return breaks, jnp.sum(breaks.astype(jnp.int32), dtype=jnp.int32)
 
 
 def _lb_rules(e):
-    """UAX#14 pair rules LB4-LB31 — elementwise over the feature env
-    (this section alone profiled ~90 ms of a 126 ms iteration as XLA
-    full-stream passes; tile-resident it is a few ms)."""
+    """UAX#14 pair rules LB4-LB31 — elementwise over the feature env."""
     L = _lb_classes()
     cls = e["cls"]
     is_lead = e["lead"] > 0

@@ -1,11 +1,11 @@
 """Batched SHA-256 on device (family K4 — crypto checksum tier).
 
 The reference benchmarks SHA256 via blake3/sha2/ring/StringZilla
-(``hash/bench.rs:298-389``), hashing one token per call. The TPU-native
+(``hash/bench.rs:298-389``), hashing one token per call. The device
 shape is *batch-parallel*: every token is one lane, its 64-byte blocks are
 processed sequentially (the chain is inherently serial) while thousands of
-tokens ride the 128-lane axis in parallel — all arithmetic is u32
-add/rotate/xor, which the VPU vectorizes directly.
+tokens ride the batch axis in parallel — all arithmetic is u32
+add/rotate/xor, which vectorizes directly.
 
 Layout: the host stages each token's fully padded message (0x80 terminator
 + big-endian bit length, FIPS 180-4 §5.1.1) as big-endian u32 words in

@@ -5,7 +5,7 @@ Needleman-Wunsch global and Smith-Waterman local scores with linear or
 affine gaps, over dense query x candidate cross-products
 (``similarities/bench.rs:269-1026``; CUPS metric = DP cells / second).
 
-TPU-native design:
+Design:
 - **Batch x diagonal layout.** All pairs are padded to a common char width
   ``L``; the DP runs one ``lax.scan`` over the 2L anti-diagonals, carrying
   two (three for affine) ``[batch, L+1]`` diagonals. Every step is dense

@@ -5,7 +5,7 @@ Reference rows: ``sz::argsort`` (+ ``.uncased()``), arrow lexsort, polars
 n*log2(n) "comparisons" (``sequence/bench.rs:79``); caller-owned ``out``
 index buffer like the Python reference (``sequence/bench.py:212-232``).
 
-TPU-native design: **LSD radix over packed key columns**. Each uint32
+Design: **LSD radix over packed key columns**. Each uint32
 column packs three 9-bit values (byte + 1; padding = 0, so shorter strings
 that are prefixes sort first, exactly byte order). Passes run from the
 least-significant column to the most-significant; every pass is one
@@ -233,7 +233,7 @@ def sorted_tokens(tape: Tape, *, uncased: bool = False) -> list[bytes]:
 # Distributed argsort (the <Nchip> scope): stable sample sort over the mesh.
 #
 # The reference's multi-core sorting rows are its competitors' parallel
-# sorts (polars/arrow); the TPU-native formulation is a SAMPLE SORT over
+# sorts (polars/arrow); the device formulation is a SAMPLE SORT over
 # the 1-D device mesh:
 #
 #   1. every shard strided-samples its leading packed key word; an

@@ -4,9 +4,8 @@ Reference rows: ``sz::count_utf8`` / simdutf ``count_utf8`` (codepoint
 counting), ``convert_utf8_to_utf32`` (decode), ``find_nth_utf8`` (offset of
 the n-th codepoint; whole-buffer scan, ``tokenization/bench.rs:459-633``).
 
-TPU formulation: everything is lead-byte classification (``b & 0xC0 !=
-0x80``) plus cumulative sums — branch-free, dense, and exactly the shape
-the VPU wants. Decode compacts codepoints with one scatter over the
+Formulation: everything is lead-byte classification (``b & 0xC0 !=
+0x80``) plus cumulative sums — branch-free and dense. Decode compacts codepoints with one scatter over the
 prefix-sum destination index; validation checks structure (continuation
 coverage) and value ranges (overlongs, surrogates, > U+10FFFF) in one
 fused pass.

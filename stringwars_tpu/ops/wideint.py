@@ -1,14 +1,14 @@
-"""64-bit integer arithmetic on 32-bit TPU lanes.
+"""64-bit integer arithmetic on 32-bit lanes.
 
-TPUs have no native 64-bit integers (XLA emulates them slowly), so every
-64-bit hash/PRNG kernel in this framework represents a u64 as a ``(hi, lo)``
-pair of uint32 arrays and does schoolbook limb arithmetic with exact
-16x16->32 partial products. This is the TPU-native analog of the scalar
-64-bit ALU the reference's hash kernels lean on (SURVEY.md K3), and it is
-also the basis for Poly1305's wide accumulation (K13).
+JAX runs without 64-bit types unless x64 mode is enabled, so every 64-bit
+hash/PRNG kernel in this framework represents a u64 as a ``(hi, lo)`` pair
+of uint32 arrays and does schoolbook limb arithmetic with exact
+16x16->32 partial products — the device analog of the scalar 64-bit ALU
+the reference's hash kernels lean on (SURVEY.md K3), and also the basis
+for Poly1305's wide accumulation (K13).
 
 All functions are shape-polymorphic elementwise ops over matching uint32
-arrays and are safe inside ``jit``/``shard_map``/Pallas kernels.
+arrays and are safe inside ``jit``/``shard_map``.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 multi-host half).
 
 The reference is single-process (SURVEY.md §5 "Distributed communication
-backend: absent"); this module is the TPU build's new first-class layer, as
+backend: absent"); this module is this build's own first-class layer, as
 BASELINE.json pins (">=80 % scaling 1 chip -> 2+ hosts"):
 
 - ``maybe_initialize()`` joins the ``jax.distributed`` process group from

@@ -1,11 +1,12 @@
 """Device scopes over a JAX mesh (kernel family K15).
 
-The TPU-native replacement for the reference's ``DeviceScope`` +
+The device replacement for the reference's ``DeviceScope`` +
 ``forkunion::Topology`` layer (``similarities/bench.rs:69-75,376-379``,
-``utils.rs:801-843``): a "core" is one TPU chip, a scope is a 1-D
-``jax.sharding.Mesh`` over some prefix of the local chips (axis ``"shard"``),
-and batch sizing scales with the chip count exactly like the reference's
-``auto_batch_size`` scales with CPU cores / GPU SMs. Multi-host scopes extend
+``utils.rs:801-843``): a scope is a 1-D ``jax.sharding.Mesh`` over some
+prefix of the local devices (axis ``"shard"``); every device reaches every
+other at the same rate, so the mesh follows the algorithm alone. Batch
+sizing scales with the device count (the reference scales with CPU cores
+or GPU SMs). Multi-host scopes extend
 the same mesh across processes (``jax.distributed``), with the variant-name
 suffix following the reference's ``<1cpu>/<16cpu>/<1gpu>`` convention as
 ``<1chip>/<4chip>/<2host>``.
@@ -56,8 +57,8 @@ class DeviceScope:
         return self.sharding(P())
 
     def auto_batch_size(self, default_base: int = 128, base: int | None = None) -> int:
-        """Batch scaled by the chip count: 1 chip == 1 "core"
-        (reference ``utils.rs:801-843``)."""
+        """Batch scaled by the device count (reference
+        ``utils.rs:801-843``)."""
         per_core = base if base is not None else get_env_parsed("BATCH_PER_CORE", default_base)
         return max(1, per_core) * max(1, self.chips)
 

@@ -4,14 +4,14 @@ BASELINE.json's config 5: "full pipeline on sharded corpus: Aho-Corasick
 multi-pattern + MinHash fingerprints + regex pre-split tokenization across
 N >= 2 hosts" — corpus shards are data-parallel across chips,
 pattern/LUT/transition/merge tables are replicated, match/token/hash
-counts are psum-reduced over ICI. This module wires the kernel families
+counts are psum-reduced across devices. This module wires the kernel families
 into one ``shard_map``-ed step used by the driver's multichip dry run, the
 scaling suite rows, and ``__graft_entry__``:
 
 - byte-axis haystack shards with (m-1)-byte halos -> substring match
   counts (K1), psum-reduced;
 - Aho-Corasick multi-pattern counts (K2) over per-chip DFA lane rows with
-  the replicated transition table, MXU matmul scan, psum-reduced;
+  the replicated transition table (gather-chain scan), psum-reduced;
 - token-batch shards -> xxh64 digests (K3) + MinHash fingerprints (K6) +
   byte-level BPE encoding against replicated merge tables (the regex
   pre-split happens host-side at staging), locally computed; digest
@@ -46,8 +46,8 @@ def _local_step(
     lut,
     ac_rows,
     ac_gpos0,
-    ac_delta_t,
-    ac_out_f,
+    ac_delta,
+    ac_out_count,
     bpe_keys,
     bpe_ranks,
     bpe_newids,
@@ -69,10 +69,10 @@ def _local_step(
     for r in range(hay_rows.shape[0]):
         match_count += F._count_from_mask_limit(hay_rows[r], needle, n_cmp, chunk)
     # K2: Aho-Corasick multi-pattern count over this shard's DFA lane rows
-    # (replicated transition table, MXU matmul scan).
-    from stringwars_tpu.ops.ahocorasick import _ac_scan_mxu
+    # (replicated transition table).
+    from stringwars_tpu.ops.ahocorasick import _ac_scan
 
-    ac_count_local = _ac_scan_mxu(ac_delta_t, ac_out_f, ac_rows, ac_gpos0, ac_n, ac_chunk)
+    ac_count_local = _ac_scan(ac_delta, ac_out_count, ac_rows, ac_gpos0, ac_n, ac_chunk)
     # K3 + K6: hash and fingerprint the local token batch.
     tokens = PaddedTokens(data=tokens_data, lengths=tokens_lengths, width=tokens_data.shape[1])
     layout = H.prepare(tokens)
@@ -94,7 +94,7 @@ def _local_step(
     bpe_total = jnp.sum(bpe_counts, dtype=jnp.int32)
     # K12: replicated-LUT translate of the local token bytes.
     translated = jnp.take(lut, tokens_data.astype(jnp.int32))
-    # Cross-shard reductions (ICI collectives).
+    # Cross-shard reductions.
     total_matches = jax.lax.psum(match_count, SHARD_AXIS)
     total_ac = jax.lax.psum(ac_count_local, SHARD_AXIS)
     total_checksum = jax.lax.psum(digest_checksum, SHARD_AXIS)
@@ -126,7 +126,7 @@ def make_sharded_step(mesh: Mesh, *, ac_n: int, ac_chunk: int):
             P(),  # LUT
             P(SHARD_AXIS, None),  # AC lane rows
             P(SHARD_AXIS),  # AC lane global offsets
-            P(),  # AC transition table [256, S] (replicated)
+            P(),  # AC transition table [S * 256] (replicated)
             P(),  # AC output counts [S]
             P(),  # BPE sorted pair keys
             P(),  # BPE ranks
@@ -147,7 +147,7 @@ def make_sharded_step(mesh: Mesh, *, ac_n: int, ac_chunk: int):
     return jax.jit(step)
 
 
-def stage_ac_rows(corpus: np.ndarray, n_chips: int, max_len: int, lanes_per_chip: int = 8):
+def stage_ac_rows(corpus: np.ndarray, n_chips: int, max_len: int, lanes_per_chip: int = 4096):
     """Chunked AC lane rows covering ``corpus``, ``lanes_per_chip`` rows per
     chip, each with a (max_len-1)-byte entry-state overlap."""
     n = corpus.shape[0]
@@ -195,8 +195,8 @@ def _pipeline_inputs(
         jax.device_put(lut, repl),
         jax.device_put(ac_rows, shard2),
         jax.device_put(ac_gpos0, shard1),
-        jax.device_put(np.asarray(auto.delta_t), repl),
-        jax.device_put(np.asarray(auto.out_count_f), repl),
+        jax.device_put(np.asarray(auto.delta_flat), repl),
+        jax.device_put(np.asarray(auto.out_count), repl),
         jax.device_put(np.asarray(table.sorted_keys), repl),
         jax.device_put(np.asarray(table.ranks), repl),
         jax.device_put(np.asarray(table.new_ids), repl),

@@ -1,7 +1,7 @@
 """Sharded tape placement + halo exchange (the cross-chip layer).
 
 The reference has no distributed layer at all (SURVEY.md §2.3 "Parallelism
-strategies"); this module is the new first-class component the TPU build adds:
+strategies"); this module is the first-class component this build adds:
 
 - **Token data-parallelism**: shard a ``PaddedTokens`` batch (or any
   leading-axis array) across the mesh's ``shard`` axis; per-chip kernels run

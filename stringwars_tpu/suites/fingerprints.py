@@ -72,29 +72,9 @@ def main() -> None:
                     width=tokens.width,
                 )
 
-            if jax.default_backend() == "tpu":
-                # Chained protocol: XOR the token bytes per iteration (gram
-                # hashing cost is content-independent).
-                from stringwars_tpu.utils.harness import (
-                    DeviceRoutine,
-                    fold_salt,
-                    perturb_u8,
-                )
-
-                def body(s, e, d, ln, _w=tokens.width, _fn=fn):
-                    toks2 = PaddedTokens(data=d ^ perturb_u8(s), lengths=ln, width=_w)
-                    mh, mc = _fn(toks2)
-                    return fold_salt(s, mh, mc), e
-
-                routine = DeviceRoutine(
-                    body=body,
-                    consts=(staged.data, staged.lengths),
-                    units=WorkUnits(elements=ndim * total_bytes, bytes=total_bytes),
-                )
-            else:
-                def routine(staged=staged) -> WorkUnits:
-                    sync(fn(staged))
-                    return WorkUnits(elements=ndim * total_bytes, bytes=total_bytes)
+            def routine(staged=staged) -> WorkUnits:
+                sync(fn(staged))
+                return WorkUnits(elements=ndim * total_bytes, bytes=total_bytes)
 
             ctx.run(f"minhash/ndim_{ndim}/swtpu::fingerprint{scope.name}", "hashes", routine)
 
@@ -116,6 +96,7 @@ def main() -> None:
             return WorkUnits(elements=min(ndim, 16) * sample_bytes, bytes=sample_bytes)
 
         ctx.run(f"minhash/ndim_{ndim}/numpy-replay", "hashes", host_routine)
+    ctx.finish()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 ``hash/bench.rs:483``, ``hash/bench.py:236``; defaults: words tokens,
 2 s warm-up + 10 s measure).
 
-TPU variants (library ``swtpu``) hash every token of the corpus per call,
+Device variants (library ``swtpu``) hash every token of the corpus per call,
 bucketed by length into rectangular layouts; host baselines (xxhash C lib,
 CPython builtins) run the same corpus item-at-a-time under the same
 deadline pacing as the reference's Python suite.
@@ -20,8 +20,17 @@ from stringwars_tpu.ops import hash as H
 from stringwars_tpu.parallel.mesh import DeviceScope
 from stringwars_tpu.suites._common import SuiteContext, chained_layouts, setup_suite
 from stringwars_tpu.tape import PaddedTokens, Tape, bucket_by_length
-from stringwars_tpu.utils.config import get_env_bool
-from stringwars_tpu.utils.harness import WorkUnits, now_ns, paced_items, sync
+from stringwars_tpu.utils.config import get_env_bool, should_run
+from stringwars_tpu.utils.harness import (
+    DeviceRoutine,
+    WorkUnits,
+    device_routine_factory,
+    fold_salt,
+    now_ns,
+    paced_items,
+    perturb_u8,
+)
+from stringwars_tpu.utils.report import report_skip
 
 BUCKET_EDGES = [16, 64, 256, 1024, 4096]
 
@@ -54,14 +63,12 @@ def build_layouts(tape: Tape, scope: DeviceScope) -> list[tuple[H.HashLayout, in
     return out
 
 
-def bench_tpu_hash(ctx: SuiteContext, group: str, fn, fn_name: str) -> None:
+def bench_device_hash(ctx: SuiteContext, group: str, fn, fn_name: str, layouts_for) -> None:
     for scope in ctx.scopes:
         try:
-            layouts = build_layouts(ctx.tape, scope)
-        except Exception as error:  # noqa: BLE001
-            from stringwars_tpu.utils.report import report_skip
-
-            report_skip(f"{group}/swtpu::{fn_name}{scope.name}", str(error))
+            layouts = layouts_for(scope)
+        except Exception as error:  # noqa: BLE001 — the suite reports it
+            ctx.fail(f"{group}/swtpu::{fn_name}{scope.name}", error)
             continue
         elements = sum(c for _, c, _ in layouts)
         total_bytes = sum(b for _, _, b in layouts)
@@ -71,7 +78,7 @@ def bench_tpu_hash(ctx: SuiteContext, group: str, fn, fn_name: str) -> None:
         ctx.run(f"{group}/swtpu::{fn_name}{scope.name}", "bytes", routine)
 
 
-def bench_tpu_xxh3(ctx: SuiteContext) -> None:
+def bench_device_xxh3(ctx: SuiteContext) -> None:
     """XXH3-64 (exact) over bucketed layouts — the reference's headline hash."""
     from stringwars_tpu.ops import xxh3 as X3
 
@@ -80,23 +87,28 @@ def bench_tpu_xxh3(ctx: SuiteContext) -> None:
         elements = 0
         total_bytes = 0
         try:
-            for bucket in __import__("stringwars_tpu.tape", fromlist=["bucket_by_length"]).bucket_by_length(
-                ctx.tape, BUCKET_EDGES
-            ):
+            for bucket in bucket_by_length(ctx.tape, BUCKET_EDGES):
                 layouts.append(jax.block_until_ready(X3.prepare3(bucket)))
                 elements += bucket.count
                 total_bytes += int(np.asarray(bucket.lengths).sum())
-        except Exception as error:  # noqa: BLE001
-            from stringwars_tpu.utils.report import report_skip
-
-            report_skip(f"stateless/swtpu::xxh3_64{scope.name}", str(error))
+        except Exception as error:  # noqa: BLE001 — the suite reports it
+            ctx.fail(f"stateless/swtpu::xxh3_64{scope.name}", error)
             continue
         routine = chained_layouts(X3.xxh3_64, layouts, WorkUnits(elements, total_bytes))
         ctx.run(f"stateless/swtpu::xxh3_64{scope.name}", "bytes", routine)
 
 
-def bench_host_hash(ctx: SuiteContext, name: str, hash_fn) -> None:
-    tokens = ctx.tape.to_list()
+def bench_host_hash(ctx: SuiteContext, name: str, package: str, attr: str, tokens: list) -> None:
+    """Host baseline row over ``package.attr``; skips when the package is
+    not installed."""
+    import importlib
+
+    try:
+        module = importlib.import_module(package)
+    except ImportError:
+        report_skip(name, f"{package} not installed")
+        return
+    hash_fn = getattr(module, attr)
 
     def routine() -> WorkUnits:
         deadline = now_ns() + int(ctx.budget.time_seconds * 1e9)
@@ -129,33 +141,44 @@ def report_collisions(ctx: SuiteContext) -> None:
 
 def main() -> None:
     ctx = setup_suite(
-        "Hash throughput suite (TPU kernels + host baselines)",
+        "Hash throughput suite (device kernels + host baselines)",
         default_tokens="words",
         default_warmup=2.0,
         default_time=10.0,
     )
-    import xxhash
-
     ctx.group("stateless")
-    bench_tpu_hash(ctx, "stateless", lambda l: H.swh64(l, 0), "swh64")
-    bench_tpu_hash(ctx, "stateless", H.xxh64, "xxh64")
-    bench_tpu_hash(ctx, "stateless", H.xxh32, "xxh32")
-    bench_tpu_xxh3(ctx)
-    bench_tpu_hash(
+    # Every stateless row hashes the same staged layouts: stage once per scope.
+    staged: dict[int, list] = {}
+
+    def layouts_for(scope: DeviceScope) -> list:
+        if scope.chips not in staged:
+            staged[scope.chips] = build_layouts(ctx.tape, scope)
+        return staged[scope.chips]
+
+    bench_device_hash(ctx, "stateless", lambda l: H.swh64(l, 0), "swh64", layouts_for)
+    bench_device_hash(ctx, "stateless", H.xxh64, "xxh64", layouts_for)
+    bench_device_hash(ctx, "stateless", H.xxh32, "xxh32", layouts_for)
+    bench_device_xxh3(ctx)
+    bench_device_hash(
         ctx,
         "stateless",
         functools.partial(H.swh64_multiseed, seeds=np.arange(8, dtype=np.uint64)),
         "swh64_multiseed8",
+        layouts_for,
     )
-    bench_host_hash(ctx, "stateless/xxhash.xxh3_64", xxhash.xxh3_64_intdigest)
-    bench_host_hash(ctx, "stateless/xxhash.xxh64", xxhash.xxh64_intdigest)
-    bench_host_hash(ctx, "stateless/builtins.hash", hash)
+    host_rows = (
+        ("stateless/xxhash.xxh3_64", "xxhash", "xxh3_64_intdigest"),
+        ("stateless/xxhash.xxh64", "xxhash", "xxh64_intdigest"),
+        ("stateless/builtins.hash", "builtins", "hash"),
+    )
+    if any(should_run(name, ctx.pattern) for name, _, _ in host_rows):
+        tokens = ctx.tape.to_list()
+        for name, package, attr in host_rows:
+            bench_host_hash(ctx, name, package, attr, tokens)
 
     ctx.group("stateful")
     corpus = ctx.tape.data
     n = ctx.tape.total_bytes
-    from stringwars_tpu.utils.harness import DeviceRoutine, fold_salt, perturb_u8
-
     corpus_dev = jax.device_put(np.asarray(corpus))
 
     def tree_body(s, e, buf):
@@ -170,46 +193,38 @@ def main() -> None:
         DeviceRoutine(body=tree_body, consts=(corpus_dev,), units=WorkUnits(elements=1, bytes=n)),
     )
 
-    def host_stream() -> WorkUnits:
-        hasher = xxhash.xxh64()
-        hasher.update(np.asarray(corpus)[:n].tobytes())
-        hasher.intdigest()
-        return WorkUnits(elements=1, bytes=n)
+    try:
+        import xxhash
+    except ImportError:
+        report_skip("stateful/xxhash.xxh64_stream", "xxhash not installed")
+    else:
 
-    ctx.run("stateful/xxhash.xxh64_stream", "bytes", host_stream)
+        def host_stream() -> WorkUnits:
+            hasher = xxhash.xxh64()
+            hasher.update(np.asarray(corpus)[:n].tobytes())
+            hasher.intdigest()
+            return WorkUnits(elements=1, bytes=n)
+
+        ctx.run("stateful/xxhash.xxh64_stream", "bytes", host_stream)
 
     ctx.group("checksum")
-    # u32-word staging: the u8→i32 convert path runs far below the HBM
-    # roofline (byte lanes tile-pad). Production path on TPU is the
-    # single-pass Pallas accumulator (one corpus read); the fused-XLA
-    # word reduce stays the CPU/interpret path.
-    from stringwars_tpu.ops.bytesum import (
-        _PL_BLK,
-        _PL_LANES,
-        _PL_SUB,
-        _bytesum_words_pallas,
-        _bytesum_words_parts,
-    )
+    # u32-word staging: the reduce pair-sums bytes inside each word.
+    from stringwars_tpu.ops.bytesum import _bytesum_words_parts, _word_chunk_shape
 
-    _blk = _PL_BLK * _PL_SUB * _PL_LANES
-    _nw = -(-max((n + 3) // 4, 1) // _blk) * _blk
-    _wbuf = np.zeros(_nw * 4, np.uint8)
-    _wbuf[:n] = np.asarray(ctx.tape.data[:n])
-    _words_dev = jax.device_put(np.ascontiguousarray(_wbuf.view("<u4")))
-    _on_tpu = jax.default_backend() == "tpu"
+    rows, lanes = _word_chunk_shape(max((n + 3) // 4, 1))
+    wbuf = np.zeros(rows * lanes * 4, np.uint8)
+    wbuf[:n] = np.asarray(ctx.tape.data[:n])
+    words_dev = jax.device_put(np.ascontiguousarray(wbuf.view("<u4")))
 
     def bytesum_body(s, e, words):
-        if _on_tpu:
-            hi, lo = _bytesum_words_pallas(words ^ s, n, False)
-        else:
-            hi, lo = _bytesum_words_parts(words ^ s, n)
+        hi, lo = _bytesum_words_parts(words ^ s, n)
         return fold_salt(s, hi, lo), e
 
     ctx.run(
         "checksum/swtpu::bytesum<1chip>",
         "bytes",
         DeviceRoutine(
-            body=bytesum_body, consts=(_words_dev,), units=WorkUnits(elements=1, bytes=n)
+            body=bytesum_body, consts=(words_dev,), units=WorkUnits(elements=1, bytes=n)
         ),
     )
 
@@ -227,14 +242,9 @@ def main() -> None:
             sha_bytes += int(np.asarray(bucket.lengths).sum())
         return chained_layouts(sha256, sha_layouts, WorkUnits(sha_elements, sha_bytes))
 
-    try:
-        sha_routine = make_sha_routine()
-    except Exception as error:  # noqa: BLE001
-        from stringwars_tpu.utils.report import report_skip
-
-        report_skip("checksum/swtpu::sha256<1chip>", str(error))
-    else:
-        ctx.run("checksum/swtpu::sha256<1chip>", "bytes", sha_routine)
+    ctx.run(
+        "checksum/swtpu::sha256<1chip>", "bytes", device_routine_factory(make_sha_routine)
+    )
 
     import hashlib
     import zlib
@@ -253,6 +263,7 @@ def main() -> None:
 
     if get_env_bool("COLLISIONS"):
         report_collisions(ctx)
+    ctx.finish()
 
 
 if __name__ == "__main__":

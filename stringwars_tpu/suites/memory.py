@@ -43,9 +43,9 @@ def main() -> None:
 
     ctx.group("lookup-table")
 
-    # Buffer-chained LUT rows (the campaign's anti-memoization shape): each
-    # iteration translates the PREVIOUS output, so no dispatch or loop step
-    # ever repeats and the full buffer is a live loop carry.
+    # Buffer-chained LUT rows: each iteration translates the PREVIOUS
+    # output, so no loop step repeats and the full buffer is a live loop
+    # carry.
     def lut_routine(fn, sdata, sn):
         def body(s, e, table):
             return s + jnp.uint32(1), fn(e, table)
@@ -57,13 +57,8 @@ def main() -> None:
         ctx.run(
             f"lookup-table/swtpu::lut_translate{scope.name}",
             "bytes",
-            lut_routine(M.lut_translate_gather, sdata, sn),
+            lut_routine(M.lut_translate, sdata, sn),
         )
-    ctx.run(
-        "lookup-table/swtpu::lut_planes<1chip>",
-        "bytes",
-        lut_routine(M.lut_translate_planes, data, n),
-    )
     host = np.asarray(data).tobytes()
     lut_b = M.invert_case_lut().tobytes()
     ctx.run(
@@ -137,6 +132,7 @@ def main() -> None:
         "bytes",
         DeviceRoutine(body=move_body, consts=(), units=WorkUnits(1, n), extra0=data),
     )
+    ctx.finish()
 
 
 if __name__ == "__main__":

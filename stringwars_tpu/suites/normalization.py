@@ -2,11 +2,11 @@
 compare and find (reference ``normalization/bench.rs``, defaults 3 s + 20 s,
 lines tokens on multilingual corpora).
 
-TPU rows run under the chained-loop protocol (anti-memoization) with
-workload-preserving perturbations (row rolls — byte XOR would corrupt
-UTF-8). The normalize rows use the production quick-check architecture:
-a gather-free per-row inert rule map covers the (overwhelming) already-
-normalized majority, and staging routes the non-inert rows through the
+Device rows run under the chained-loop protocol with workload-preserving
+perturbations (row rolls — byte XOR would corrupt UTF-8). The normalize
+rows use the production quick-check architecture: a per-row class-table
+check covers the (overwhelming) already-normalized majority, and staging
+routes the non-inert rows through the
 exact stream kernels — total measured work is the full corpus, exactly
 like the reference's quick-check-dominated libraries
 (``normalization/bench.rs:113-141``).
@@ -36,21 +36,20 @@ def stream_rows(data_np: np.ndarray, width: int = 1024) -> PaddedTokens:
     """Chunk a UTF-8 byte stream into [rows, width] PaddedTokens whose row
     boundaries never split a multibyte character (staging-time, host)."""
     n = int(data_np.shape[0])
+    # lead_at[i]: the last non-continuation byte position <= i.
+    is_lead = (data_np & 0xC0) != 0x80
+    lead_at = np.maximum.accumulate(np.where(is_lead, np.arange(n), 0)).tolist()
     starts = [0]
     while starts[-1] + width < n:
-        e = starts[-1] + width
-        while e > starts[-1] and (int(data_np[e]) & 0xC0) == 0x80:
-            e -= 1
-        if e == starts[-1]:  # pathological: a >width continuation run
+        e = lead_at[starts[-1] + width]
+        if e <= starts[-1]:  # pathological: a >width continuation run
             e = starts[-1] + width
         starts.append(e)
-    rows = len(starts)
-    buf = np.zeros((rows, width), np.uint8)
-    lengths = np.zeros(rows, np.int32)
-    for i, s in enumerate(starts):
-        e = starts[i + 1] if i + 1 < rows else n
-        lengths[i] = e - s
-        buf[i, : e - s] = data_np[s:e]
+    starts_np = np.asarray(starts, np.int64)
+    lengths = np.diff(np.append(starts_np, n)).astype(np.int32)
+    pos = starts_np[:, None] + np.arange(width)[None, :]
+    inside = np.arange(width)[None, :] < lengths[:, None]
+    buf = np.where(inside, data_np[np.minimum(pos, max(n - 1, 0))], 0).astype(np.uint8)
     return PaddedTokens(data=jnp.asarray(buf), lengths=jnp.asarray(lengths), width=width)
 
 
@@ -82,14 +81,12 @@ def main() -> None:
     corpus_max_cp = max(map(ord, host_text), default=0x7F)
 
     # Narrow staging for the fold: the per-row compaction sort scales
-    # ~width log^2 width, so 32-cp rows beat 1 KB rows ~5x on TPU.
+    # ~width log^2 width, so short rows sort less per byte.
     fold_toks = stream_rows(data_np, width=32)
 
     def fold_body(s, e, d, ln):
-        from stringwars_tpu.ops.casefold_pallas import fold_tokens_fused
-
         rolled = PaddedTokens(data=_roll(s, d), lengths=_roll(s, ln), width=fold_toks.width)
-        out, counts = fold_tokens_fused(rolled, corpus_max_cp)
+        out, counts = CF.fold_tokens(rolled, max_cp=corpus_max_cp)
         return fold_salt(s, counts, out[:, :8]), e
 
     ctx.run(
@@ -178,57 +175,15 @@ def main() -> None:
     fm = max(int(fm), 1)
     needle_cp = jnp.asarray(np.asarray(fn)[:fm])
 
-    folded_np = np.asarray(folded_hay)[: int(fold_count)]
-    needle_np = np.asarray(fn)[:fm]
-    ascii_fold = (
-        jax.default_backend() == "tpu"
-        and folded_np.size > 0
-        and int(folded_np.max()) < 128
-        and int(needle_np.max(initial=0)) < 128
-    )
-    if ascii_fold:
-        # ASCII-folding corpora repack the folded stream to bytes and ride
-        # the packed-word find panel (the i32 window compare pays 4x the
-        # traffic plus unfused shifted slices).
-        from stringwars_tpu.ops.find import pack_needle
-        from stringwars_tpu.ops.find_pallas import StagedHaystack, _count
+    nfold = int(fold_count)
 
-        staged = StagedHaystack(folded_np.astype(np.uint8))
-        cap = 4
-        while 4 * cap - 3 < fm:
-            cap *= 2
-        packed = pack_needle(needle_np.astype(np.uint8).tobytes(), cap)
-        w4 = jax.lax.bitcast_convert_type(jnp.asarray(packed.words), jnp.int32)
-        m4 = jax.lax.bitcast_convert_type(jnp.asarray(packed.masks), jnp.int32)
-        meta = jnp.asarray([staged.n, int(packed.length), staged.chunkw], jnp.int32)
+    def find_body(s, e, hay, nd):
+        # Perturb the needle codepoints (window-compare cost is
+        # data-independent; matches just change).
+        pert = (s & jnp.uint32(0xFFFF)).astype(jnp.int32)
+        return fold_salt(s, CF._window_count(hay, nd ^ pert, jnp.int32(nfold), fm)), e
 
-        def find_body(s, e, rows, words4, masks4, mt):
-            spread = jax.lax.bitcast_convert_type(s * jnp.uint32(0x9E3779B1), jnp.int32)
-            cnt = _count(rows, words4 ^ spread, masks4, mt, packed.capacity, False)
-            return fold_salt(s, cnt), e
-
-        consts = (staged.rows, w4, m4, meta)
-    else:
-        # General (non-ASCII) form: the staged codepoint-window Pallas
-        # kernel — one HBM pass over the i32 folded stream vs the XLA
-        # window compare's m unfused shifted slices (7.9 -> one-pass).
-        from stringwars_tpu.ops.find_pallas import cp_window_count, stage_cp_rows
-
-        nfold = int(folded_np.size)
-        cp_rows, cp_chunk = stage_cp_rows(
-            folded_np if nfold else np.zeros(1, np.int32), max(nfold, 1)
-        )
-        cp_meta = jnp.asarray([max(nfold, 1), cp_chunk], jnp.int32)
-        interp = jax.default_backend() != "tpu"
-
-        def find_body(s, e, rows, mt, nd):
-            # Perturb the needle codepoints (window-compare cost is
-            # data-independent; matches just change).
-            pert = (s & jnp.uint32(0xFFFF)).astype(jnp.int32)
-            cnt = cp_window_count(rows, nd ^ pert, mt, fm, interp)
-            return fold_salt(s, cnt), e
-
-        consts = (jnp.asarray(cp_rows), cp_meta, needle_cp)
+    consts = (folded_hay, needle_cp)
 
     ctx.run(
         "case-insensitive-find/swtpu::uncased_find<1chip>",
@@ -245,6 +200,7 @@ def main() -> None:
         return WorkUnits(max(count, 1), n)
 
     ctx.run("case-insensitive-find/casefold-count", "bytes", host_find)
+    ctx.finish()
 
 
 def _normalize_routine(

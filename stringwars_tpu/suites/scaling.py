@@ -1,14 +1,14 @@
 """Scaling suite: multi-chip data-parallel rows (<1chip> vs <Nchip>).
 
-The reference's scope sweep is 1cpu/Ncpu/1gpu per variant; this suite is
-the TPU build's replacement: the flagship sharded pipeline (halo find +
-hash + fingerprint + LUT, ``parallel/pipeline.py``) measured per scope with
-scaling efficiency printed to stderr (BASELINE.json target: >= 80 % linear
-bytes/s from 1 chip up).
+The reference's scope sweep is 1cpu/Ncpu/1gpu per variant; this suite
+measures the flagship sharded pipeline (halo find + AC + hash +
+fingerprint + BPE + LUT, ``parallel/pipeline.py``) per scope with scaling
+efficiency printed to stderr (BASELINE.json target: >= 80 % linear bytes/s
+from 1 chip up).
 
-On a single-chip machine the <Nchip> rows collapse to <1chip>; run under
-``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORM_NAME=cpu``
-to exercise the 8-way sharded path.
+On a single-device machine the <Nchip> rows collapse to <1chip>; run under
+``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``
+to exercise the 8-way sharded path on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from jax.sharding import Mesh
 
 from stringwars_tpu.parallel.pipeline import make_sharded_step
 from stringwars_tpu.suites._common import setup_suite
-from stringwars_tpu.utils.harness import WorkUnits
+from stringwars_tpu.utils.harness import DeviceRoutine, WorkUnits, fold_salt, perturb_u8
 
 
 def build_inputs(mesh: Mesh, tape, tokens_per_chip: int, hay_bytes_per_chip: int):
@@ -76,32 +76,21 @@ def main() -> None:
         )
         step = make_sharded_step(mesh, ac_n=ac_n, ac_chunk=ac_chunk)
 
-        name = f"pipeline/swtpu::sharded_step{scope.name}"
-        from stringwars_tpu.utils.config import should_run
-        from stringwars_tpu.utils.harness import (
-            DeviceRoutine,
-            fold_salt,
-            measure_chained,
-            perturb_u8,
-        )
-
-        if not should_run(name, ctx.pattern):
-            continue
-
         def body(s, e, *consts):
             # Salt every byte-stream input (haystack, token rows) so no
-            # pipeline dispatch repeats; counts fold back into the salt.
+            # two iterations repeat; counts fold back into the salt.
             pert = perturb_u8(s)
             salted = [c ^ pert if c.dtype == jnp.uint8 else c for c in consts]
             out = step(*salted)
             return fold_salt(s, *jax.tree_util.tree_leaves(out)), e
 
-        stats = measure_chained(
+        stats = ctx.run(
+            f"pipeline/swtpu::sharded_step{scope.name}",
+            "bytes",
             DeviceRoutine(body=body, consts=tuple(inputs), units=WorkUnits(1, total_bytes)),
-            ctx.budget,
         )
-        stats.report(name, "bytes")
-        rates[scope.chips] = stats.bytes_per_second
+        if stats is not None:
+            rates[scope.chips] = stats.bytes_per_second
 
     if len(rates) > 1:
         base = rates[min(rates)]
@@ -111,6 +100,7 @@ def main() -> None:
                 f"scaling {chips} chip(s): {rate / 1e9:.2f} GB/s, efficiency {100 * eff:.1f}%",
                 file=sys.stderr,
             )
+    ctx.finish()
 
 
 if __name__ == "__main__":

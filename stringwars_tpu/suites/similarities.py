@@ -10,16 +10,17 @@ CUPS = sum(|q|) * sum(|c|) cells per pass (``similarities/bench.rs:113-118,
 ``SWTPU_ERROR_BOUND`` is set — the banded variant (reference
 ``STRINGWARS_ERROR_BOUND``, ``README.md:311``).
 
-Engines: on TPU the uniform distances run the bit-parallel Myers Pallas
-kernel (``ops/myers_pallas``); the gap-cost scores and all CPU paths run
-the anti-diagonal wavefront (``ops/similarity``). Device rows sweep
-``<1chip>`` plus a sharded ``<Nchip>`` scope (pair batch split on the
+Engines: the uniform distances run the bit-parallel Myers kernel
+(``ops/myers_pallas``, Pallas through Triton on the GPU); the gap-cost
+scores run the anti-diagonal wavefront (``ops/similarity``). Device rows
+sweep ``<1chip>`` plus a sharded ``<Nchip>`` scope (pair batch split on the
 leading axis, scores computed per shard — the reference's 1cpu/Ncpu/1gpu
 sweep, ``similarities/bench.rs:376-399``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import sys
 
@@ -28,19 +29,13 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
-import jax.numpy as jnp
-
 from stringwars_tpu.ops import similarity as S
+from stringwars_tpu.ops.myers_pallas import _myers, myers_from_codepoints, myers_from_tokens
+from stringwars_tpu.ops.utf8 import decode_codepoints
 from stringwars_tpu.parallel.mesh import SHARD_AXIS, DeviceScope
 from stringwars_tpu.suites._common import SuiteContext, setup_suite
 from stringwars_tpu.utils.config import get_env_parsed
-from stringwars_tpu.utils.harness import (
-    DeviceRoutine,
-    WorkUnits,
-    fold_salt,
-    perturb_u8,
-    sync,
-)
+from stringwars_tpu.utils.harness import WorkUnits, sync
 
 
 def build_crossproduct(ctx: SuiteContext, max_side: int = 64, max_len: int = 256):
@@ -90,113 +85,58 @@ def make_sharded_scorer(scope: DeviceScope, batch: S.PairBatch, fn):
     return lambda: step(sharded.a, sharded.b, sharded.a_len, sharded.b_len)
 
 
-def shard_tiles(scope: DeviceScope, arrays):
-    """Pad the leading (batch-tile) axis to a multiple of the mesh and shard
-    it. Zero-padded tiles are inert for both Pallas DP kernels: blen == 0
-    makes every column update a no-op."""
-    n_bt = arrays[0].shape[0]
-    pad_bt = -(-n_bt // scope.chips) * scope.chips
+def shard_blocks(scope: DeviceScope, arrays):
+    """Pad the leading (pair-block) axis to a multiple of the mesh and
+    shard it. Zero-padded blocks are inert: empty pairs score 0."""
+    n_blk = arrays[0].shape[0]
+    pad_blk = -(-n_blk // scope.chips) * scope.chips
     out = []
     for x in arrays:
         xn = np.asarray(x)
-        if pad_bt != n_bt:
-            xn = np.pad(xn, [(0, pad_bt - n_bt)] + [(0, 0)] * (xn.ndim - 1))
+        if pad_blk != n_blk:
+            xn = np.pad(xn, [(0, pad_blk - n_blk)] + [(0, 0)] * (xn.ndim - 1))
         spec = P(SHARD_AXIS, *([None] * (xn.ndim - 1)))
         out.append(jax.device_put(xn, scope.sharding(spec)))
     return out
 
 
-def _myers_routine(scope: DeviceScope, cells, total_bytes, tokens) -> DeviceRoutine:
-    """Chained DeviceRoutine over the bit-parallel Myers Pallas kernel —
-    the production path for EVERY TPU scope: the staged tile axis shards
-    across the mesh (one shard_map, no fallback to the slow XLA wavefront).
-    Text columns are salt-perturbed so no dispatch repeats."""
-    from stringwars_tpu.ops.myers_pallas import _myers, myers_from_tokens
-
-    mb = myers_from_tokens(*tokens)
-    consts = (mb.bp, mb.b_cols, mb.blen, mb.lastw, mb.lastr, mb.alen)
-
-    def run(bp, b_cols, blen, lastw, lastr, alen, pert):
-        # XOR the text codes (bits 0..7 feed Eq; distances change, cost
-        # does not). Pattern planes must stay intact (sentinel semantics).
-        return _myers(bp, b_cols ^ pert, blen, lastw, lastr, alen, mb.n_words, mb.nbits, False, last_word=mb.last_word)
-
-    if scope.chips > 1:
-        consts = tuple(shard_tiles(scope, consts))
-        tile_spec = lambda x: P(SHARD_AXIS, *([None] * (x.ndim - 1)))  # noqa: E731
-        sharded_run = shard_map(
+def myers_scorer(scope: DeviceScope, mb, *, interpret: bool = False):
+    """Zero-arg callable running the Myers kernel over a staged batch; on
+    a multi-device scope the pair blocks are split across devices."""
+    statics = mb.statics()
+    run = functools.partial(_myers, **statics, interpret=interpret)
+    if scope.chips == 1:
+        arrays = mb.arrays()
+        return lambda: run(*arrays)
+    arrays = shard_blocks(scope, mb.arrays())
+    step = jax.jit(
+        shard_map(
             run,
             mesh=scope.mesh,
-            in_specs=(*[tile_spec(c) for c in consts], P()),
-            out_specs=P(SHARD_AXIS, None, None),
+            in_specs=(P(SHARD_AXIS, None),) * len(arrays),
+            out_specs=P(SHARD_AXIS, None),
             check_vma=False,
         )
-    else:
-        sharded_run = run
-
-    def body(s, e, *cs):
-        out = sharded_run(*cs, perturb_u8(s).astype(jnp.int32))
-        return fold_salt(s, out), e
-
-    return DeviceRoutine(body=body, consts=consts, units=WorkUnits(cells, total_bytes))
+    )
+    return lambda: step(*arrays)
 
 
-def _gotoh_routine(scope: DeviceScope, cells, total_bytes, gotoh) -> DeviceRoutine:
-    """Chained DeviceRoutine over the Gotoh Pallas wavefront for every TPU
-    scope (tile axis sharded on multi-chip meshes)."""
-    from stringwars_tpu.ops.affine_pallas import _affine, affine_from_tokens
-
-    ta, tb, mt, mm, go, ge, local = gotoh
-    # pack16 (2 cells per vreg lane) was deleted: Mosaic on the current
-    # toolchain cannot legalize arith.maxsi on packed (8,128,2)xi16
-    # vectors, so the int16 kernels compile only in interpret mode.
-    ab = affine_from_tokens(ta, tb)
-    consts = (ab.a_chars, ab.rb_pad, ab.alen, ab.blen)
-
-    def run(a_chars, rb_pad, alen, blen, pert):
-        # Perturb query chars, preserving negative padding sentinels.
-        a2 = jnp.where(a_chars >= 0, a_chars ^ pert.astype(a_chars.dtype), a_chars)
-        return _affine(a2, rb_pad, alen, blen, ab.A, ab.L, mt, mm, go, ge, local, False,
-                       uniform_full=ab.uniform_full)
-
-    if scope.chips > 1:
-        consts = tuple(shard_tiles(scope, consts))
-        tile_spec = lambda x: P(SHARD_AXIS, *([None] * (x.ndim - 1)))  # noqa: E731
-        sharded_run = shard_map(
-            run,
-            mesh=scope.mesh,
-            in_specs=(*[tile_spec(c) for c in consts], P()),
-            out_specs=P(SHARD_AXIS, None, None),
-            check_vma=False,
-        )
-    else:
-        sharded_run = run
-
-    def body(s, e, *cs):
-        out = sharded_run(*cs, perturb_u8(s).astype(jnp.int32))
-        return fold_salt(s, out), e
-
-    return DeviceRoutine(body=body, consts=consts, units=WorkUnits(cells, total_bytes))
-
-
-def run_engine(ctx, name, batch, cells, total_bytes, fn, *, myers_tokens=None, gotoh=None):
-    """One engine row per scope. On TPU the Pallas fast kernels (Myers /
-    Gotoh) are the production path for every scope — ``<Nchip>`` shards
-    their staged tile axis under ``shard_map`` — and rows are measured
-    under the chained-loop protocol. CPU backends run the XLA wavefront
-    (plain on 1 chip, batch-sharded beyond)."""
-    on_tpu = jax.default_backend() == "tpu"
+def run_engine(ctx, name, cells, total_bytes, scorers):
+    """One engine row per scope; ``scorers(scope)`` returns the zero-arg
+    device call for that scope."""
     for scope in ctx.scopes:
-        if on_tpu and gotoh is not None:
-            routine = _gotoh_routine(scope, cells, total_bytes, gotoh)
-        elif on_tpu and myers_tokens is not None:
-            routine = _myers_routine(scope, cells, total_bytes, myers_tokens)
-        elif scope.chips == 1:
-            routine = lambda: (sync(fn(batch)), WorkUnits(cells, total_bytes))[1]
-        else:
-            step = make_sharded_scorer(scope, batch, fn)
-            routine = lambda step=step: (sync(step()), WorkUnits(cells, total_bytes))[1]
+        call = scorers(scope)
+        routine = lambda call=call: (sync(call()), WorkUnits(cells, total_bytes))[1]
         ctx.run(f"{name}{scope.name}", "cups", routine)
+
+
+def wavefront_scorers(batch, fn):
+    def scorer(scope):
+        if scope.chips == 1:
+            return lambda: fn(batch)
+        return make_sharded_scorer(scope, batch, fn)
+
+    return scorer
 
 
 def main() -> None:
@@ -210,10 +150,8 @@ def main() -> None:
     try:
         batch, cells, total_bytes, queries, candidates, pairs_a, pairs_b = build_crossproduct(ctx)
     except ValueError as error:
-        from stringwars_tpu.utils.report import report_skip
-
-        report_skip("similarities/*", str(error))
-        return
+        ctx.fail("similarities/swtpu::*", error)
+        ctx.finish()
 
     print(
         f"cross-product {len(queries)}x{len(candidates)} pairs, width {batch.width}, "
@@ -222,80 +160,32 @@ def main() -> None:
     )
 
     ctx.group("uniform")
+    mb = myers_from_tokens(pairs_a, pairs_b)
     run_engine(
-        ctx,
-        "uniform/swtpu::levenshtein",
-        batch,
-        cells,
-        total_bytes,
-        S.levenshtein,
-        myers_tokens=(pairs_a, pairs_b),
+        ctx, "uniform/swtpu::levenshtein", cells, total_bytes,
+        lambda scope: myers_scorer(scope, mb),
     )
 
     # UTF-8 codepoint distances (cells = codepoint cells).
-    try:
-        batch_u = S.pack_pairs_utf8(pairs_a, pairs_b)
-        cells_u = int(
-            (np.asarray(batch_u.a_len, np.int64) * np.asarray(batch_u.b_len, np.int64)).sum()
-        )
-        if jax.default_backend() == "tpu":
-            from stringwars_tpu.ops.myers_pallas import myers_from_codepoints, _myers
-            from stringwars_tpu.ops.utf8 import decode_codepoints
-
-            mbu = myers_from_codepoints(
-                [decode_codepoints(t) for t in pairs_a],
-                [decode_codepoints(t) for t in pairs_b],
-            )
-
-            def utf8_body(s, e, bp, b_cols, blen, lastw, lastr, alen):
-                out = _myers(
-                    bp, b_cols ^ perturb_u8(s).astype(jnp.int32), blen, lastw, lastr, alen,
-                    mbu.n_words, mbu.nbits, False, last_word=mbu.last_word,
-                )
-                return fold_salt(s, out), e
-
-            utf8_routine = DeviceRoutine(
-                body=utf8_body,
-                consts=(mbu.bp, mbu.b_cols, mbu.blen, mbu.lastw, mbu.lastr, mbu.alen),
-                units=WorkUnits(cells_u, total_bytes),
-            )
-        else:
-            utf8_routine = lambda: (
-                sync(S.levenshtein(batch_u)),
-                WorkUnits(cells_u, total_bytes),
-            )[1]
-        ctx.run("uniform-utf8/swtpu::levenshtein<1chip>", "cups", utf8_routine)
-    except Exception as error:  # noqa: BLE001 — skip-not-crash
-        from stringwars_tpu.utils.report import report_skip
-
-        report_skip("uniform-utf8/swtpu::levenshtein<1chip>", f"{type(error).__name__}: {error}")
+    a_cps = [decode_codepoints(t) for t in pairs_a]
+    b_cps = [decode_codepoints(t) for t in pairs_b]
+    cells_u = sum(len(x) * len(y) for x, y in zip(a_cps, b_cps))
+    mbu = myers_from_codepoints(a_cps, b_cps)
+    ctx.run(
+        "uniform-utf8/swtpu::levenshtein<1chip>",
+        "cups",
+        lambda: (sync(myers_scorer(ctx.scopes[0], mbu)()), WorkUnits(cells_u, total_bytes))[1],
+    )
 
     # Banded variant, active when SWTPU_ERROR_BOUND is set (reference
     # STRINGWARS_ERROR_BOUND semantics).
     bound = get_env_parsed("ERROR_BOUND", 0)
     if bound > 0:
         band = int(bound)
-        if jax.default_backend() == "tpu":
-
-            def banded_body(s, e, a, b, a_len, b_len):
-                pert = perturb_u8(s).astype(b.dtype)
-                salted = S.PairBatch(a=a, b=b ^ pert, a_len=a_len, b_len=b_len)
-                return fold_salt(s, S.levenshtein_banded(salted, band)), e
-
-            banded_routine = DeviceRoutine(
-                body=banded_body,
-                consts=(batch.a, batch.b, batch.a_len, batch.b_len),
-                units=WorkUnits(cells, total_bytes),
-            )
-        else:
-            banded_routine = lambda: (
-                sync(S.levenshtein_banded(batch, band)),
-                WorkUnits(cells, total_bytes),
-            )[1]
         ctx.run(
             f"uniform-banded{band}/swtpu::levenshtein<1chip>",
             "cups",
-            banded_routine,
+            lambda: (sync(S.levenshtein_banded(batch, band)), WorkUnits(cells, total_bytes))[1],
         )
 
     # Host baseline: stdlib-ish DP on the diagonal only (reference baselines
@@ -312,25 +202,17 @@ def main() -> None:
     ctx.run("uniform/python-dp-diagonal", "cups", host_routine)
 
     ctx.group("linear")
-    pair_toks = (pairs_a, pairs_b)
-    run_engine(
-        ctx, "linear/swtpu::needleman_wunsch", batch, cells, total_bytes,
-        S.nw_score_linear, gotoh=(*pair_toks, 2, -1, -2, -2, False),
-    )
-    run_engine(
-        ctx, "linear/swtpu::smith_waterman", batch, cells, total_bytes,
-        S.sw_score_linear, gotoh=(*pair_toks, 2, -1, -2, -2, True),
-    )
+    run_engine(ctx, "linear/swtpu::needleman_wunsch", cells, total_bytes,
+               wavefront_scorers(batch, S.nw_score_linear))
+    run_engine(ctx, "linear/swtpu::smith_waterman", cells, total_bytes,
+               wavefront_scorers(batch, S.sw_score_linear))
 
     ctx.group("affine")
-    run_engine(
-        ctx, "affine/swtpu::needleman_wunsch", batch, cells, total_bytes,
-        S.nw_score_affine, gotoh=(*pair_toks, 2, -1, -5, -1, False),
-    )
-    run_engine(
-        ctx, "affine/swtpu::smith_waterman", batch, cells, total_bytes,
-        S.sw_score_affine, gotoh=(*pair_toks, 2, -1, -5, -1, True),
-    )
+    run_engine(ctx, "affine/swtpu::needleman_wunsch", cells, total_bytes,
+               wavefront_scorers(batch, S.nw_score_affine))
+    run_engine(ctx, "affine/swtpu::smith_waterman", cells, total_bytes,
+               wavefront_scorers(batch, S.sw_score_affine))
+    ctx.finish()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The token tape — the framework's central data structure (kernel family K14).
 
-A ``Tape`` is the TPU-native analog of the reference's zero-copy string tape
+A ``Tape`` is the device analog of the reference's zero-copy string tape
 (stringtape ``BytesCowsAuto`` / ``sz.Strs``, used everywhere: reference
 ``utils.rs:265``, ``similarities/bench.rs:292-307``): a flat ``uint8`` byte
 buffer plus an ``int32`` offsets array delimiting ``count`` tokens. Unlike the
@@ -12,7 +12,7 @@ sharded over a device mesh on the byte or the token axis.
 
 For batched per-token kernels (hashing, edit distances, fingerprints) the tape
 is reshaped once into ``PaddedTokens`` — a ``[batch, padded_len]`` uint8 matrix
-with explicit lengths — because the TPU wants rectangular tiles; the padded
+with explicit lengths — because batched kernels want rectangular arrays; the padded
 width is chosen per-bucket from the corpus length histogram, the same histogram
 the reference logs at load time (``utils.rs:372-398``).
 """
@@ -26,8 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Lane-alignment quantum for flat byte buffers: one (8, 128) float32-equivalent
-# vreg worth of int8 payload keeps every reshape/bitcast legal on TPU.
+# Alignment quantum for flat byte buffers (keeps word reshapes exact).
 BYTE_ALIGN = 4 * 1024
 
 _ASCII_WS = np.array([9, 10, 11, 12, 13, 32], dtype=np.uint8)
@@ -154,8 +153,7 @@ class Tape:
 
 def pack_u32(data: jax.Array) -> jax.Array:
     """LE u32 words from a uint8 array (last axis length divisible by 4),
-    via strided slices — the TPU-safe alternative to ``bitcast_convert_type``
-    over a trailing axis of 4 (which tiling would pad to 128 lanes)."""
+    via strided slices."""
     b0 = data[..., 0::4].astype(jnp.uint32)
     b1 = data[..., 1::4].astype(jnp.uint32)
     b2 = data[..., 2::4].astype(jnp.uint32)
@@ -230,9 +228,7 @@ class PaddedTokens:
     def as_u32(self) -> jax.Array:
         """Little-endian uint32 view, shape ``[count, width // 4]``.
 
-        Built from four strided byte slices (b0 | b1<<8 | b2<<16 | b3<<24)
-        instead of a bitcast: TPU tiling pads any trailing axis of 4 to 128
-        lanes, so ``[N, 4]``-shaped bitcast views cost 32-128x their size.
+        Built from four strided byte slices (b0 | b1<<8 | b2<<16 | b3<<24).
         """
         return pack_u32(self.data)
 

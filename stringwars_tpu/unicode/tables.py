@@ -1,6 +1,7 @@
-"""Unicode table generation (UCD 15.0 via CPython's unicodedata).
+"""Unicode tables: dense, device-friendly arrays over [0, 0x110000).
 
-Produces dense, device-friendly arrays cached in ``~/.cache/swtpu-unicode``:
+Tables derived from CPython's ``unicodedata`` (UCD 15.0) are computed in
+memory at first use (about a second each):
 
 - ``fold``: full case folding (C+F): 1→N codepoint expansion stored as a
   flat expansion pool + per-cp (offset, length); 1:1 folds inline.
@@ -13,7 +14,12 @@ Produces dense, device-friendly arrays cached in ``~/.cache/swtpu-unicode``:
   derived by NFC round-trip so exclusions are honored.
 - ``whitespace`` / ``newline``: boolean class tables (tokenization).
 
-All tables cover the full plane range [0, 0x110000).
+The break-property tables (TR29 grapheme/word/sentence, UAX#14 line,
+Extended_Pictographic, InCB) come from the ``regex`` module's UCD classes
+and ship with the package as compressed ``.npz`` files under ``data/``, so
+running the library needs no ``regex``. Regenerate them with::
+
+    python -m stringwars_tpu.unicode.tables
 """
 
 from __future__ import annotations
@@ -26,17 +32,12 @@ import unicodedata
 import numpy as np
 
 MAX_CP = 0x110000
-_CACHE_DIR = os.path.expanduser("~/.cache/swtpu-unicode")
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 # The 25 Unicode whitespace codepoints the reference splits on
 # (tokenization/bench.rs whitespaces) = str.isspace() plus NEL/ZWSP-adjacent
 # set; we use Python's str.isspace() which matches UCD White_Space.
 NEWLINE_CPS = (0x0A, 0x0B, 0x0C, 0x0D, 0x85, 0x2028, 0x2029)
-
-
-def _cache_path(name: str) -> str:
-    os.makedirs(_CACHE_DIR, exist_ok=True)
-    return os.path.join(_CACHE_DIR, f"{name}-ucd{unicodedata.unidata_version}.npz")
 
 
 def _pooled(mapping: dict[int, list[int]]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -61,11 +62,6 @@ def _pooled(mapping: dict[int, list[int]]) -> tuple[np.ndarray, np.ndarray, np.n
 @functools.lru_cache(maxsize=None)
 def casefold_tables():
     """(inline, multi, pool): full case folding per codepoint."""
-    path = _cache_path("fold")
-    if os.path.exists(path):
-        z = np.load(path)
-        return z["inline"], z["multi"], z["pool"]
-    print("generating case-fold tables (one-time)...", file=sys.stderr)
     mapping: dict[int, list[int]] = {}
     for cp in range(MAX_CP):
         if 0xD800 <= cp <= 0xDFFF:
@@ -73,20 +69,13 @@ def casefold_tables():
         folded = chr(cp).casefold()
         if folded != chr(cp):
             mapping[cp] = [ord(c) for c in folded]
-    inline, multi, pool = _pooled(mapping)
-    np.savez_compressed(path, inline=inline, multi=multi, pool=pool)
-    return inline, multi, pool
+    return _pooled(mapping)
 
 
 @functools.lru_cache(maxsize=None)
 def decomposition_tables(compat: bool):
     """Fully-expanded NFD (or NFKD) decomposition per codepoint."""
     form = "NFKD" if compat else "NFD"
-    path = _cache_path(form.lower())
-    if os.path.exists(path):
-        z = np.load(path)
-        return z["inline"], z["multi"], z["pool"]
-    print(f"generating {form} tables (one-time)...", file=sys.stderr)
     mapping: dict[int, list[int]] = {}
     for cp in range(MAX_CP):
         if 0xD800 <= cp <= 0xDFFF:
@@ -94,22 +83,16 @@ def decomposition_tables(compat: bool):
         expanded = unicodedata.normalize(form, chr(cp))
         if expanded != chr(cp):
             mapping[cp] = [ord(c) for c in expanded]
-    inline, multi, pool = _pooled(mapping)
-    np.savez_compressed(path, inline=inline, multi=multi, pool=pool)
-    return inline, multi, pool
+    return _pooled(mapping)
 
 
 @functools.lru_cache(maxsize=None)
 def ccc_table() -> np.ndarray:
-    path = _cache_path("ccc")
-    if os.path.exists(path):
-        return np.load(path)["ccc"]
     ccc = np.zeros(MAX_CP, dtype=np.uint8)
     for cp in range(MAX_CP):
         if 0xD800 <= cp <= 0xDFFF:
             continue
         ccc[cp] = unicodedata.combining(chr(cp))
-    np.savez_compressed(path, ccc=ccc)
     return ccc
 
 
@@ -118,10 +101,6 @@ def composition_pairs() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(starters, combiners, composed): primary composites, exclusions
     honored (derived by NFC round-trip of each canonical 2-cp
     decomposition). Hangul LV/LVT excluded (algorithmic)."""
-    path = _cache_path("comp")
-    if os.path.exists(path):
-        z = np.load(path)
-        return z["starters"], z["combiners"], z["composed"]
     starters, combiners, composed = [], [], []
     ccc = ccc_table()
     for cp in range(MAX_CP):
@@ -137,13 +116,11 @@ def composition_pairs() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             starters.append(parts[0])
             combiners.append(parts[1])
             composed.append(cp)
-    out = (
+    return (
         np.array(starters, np.int32),
         np.array(combiners, np.int32),
         np.array(composed, np.int32),
     )
-    np.savez_compressed(path, starters=out[0], combiners=out[1], composed=out[2])
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,9 +139,6 @@ def nfc_fast_table(compat: bool) -> np.ndarray:
     plus ccc == 0 so no reordering question arises. Surrogates excluded.
     """
     form = "NFKC" if compat else "NFC"
-    path = _cache_path(f"{form.lower()}-fast")
-    if os.path.exists(path):
-        return np.load(path)["fast"]
     fast = np.zeros(MAX_CP, dtype=bool)
     ccc = ccc_table()
     for cp in range(MAX_CP):
@@ -176,7 +150,6 @@ def nfc_fast_table(compat: bool) -> np.ndarray:
     fast[combiners] = False
     fast[0x1161:0x1176] = False  # Hangul V jamo (QC=Maybe)
     fast[0x11A8:0x11C3] = False  # Hangul T jamo (QC=Maybe)
-    np.savez_compressed(path, fast=fast)
     return fast
 
 
@@ -199,7 +172,8 @@ def newline_table() -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # Break-property tables (TR29 / UAX#14), generated via the `regex` module,
-# which exposes the UCD break properties as \p{...} classes.
+# which exposes the UCD break properties as \p{...} classes, and shipped
+# in ``data/``.
 # ---------------------------------------------------------------------------
 
 GCB_VALUES = (
@@ -216,10 +190,28 @@ SB_VALUES = (
     "Other", "CR", "LF", "Extend", "Sep", "Format", "Sp", "Lower", "Upper",
     "OLetter", "Numeric", "ATerm", "STerm", "Close", "SContinue",
 )
+LB_VALUES = (
+    "XX", "BK", "CR", "LF", "NL", "SP", "ZW", "WJ", "GL", "BA", "BB",
+    "B2", "HY", "CB", "CL", "CP", "EX", "IN", "NS", "OP", "QU", "IS",
+    "NU", "PO", "PR", "SY", "AI", "AL", "CJ", "EB", "EM", "H2", "H3",
+    "HL", "ID", "JL", "JT", "JV", "RI", "SA", "CM", "ZWJ",
+)
+INCB_VALUES = ("None", "Extend", "Linker", "Consonant")
+
+# File stem -> (regex property, class values); values[0] is the default.
+BREAK_PROPERTIES = {
+    "gcb": ("Grapheme_Cluster_Break", GCB_VALUES),
+    "wb": ("Word_Break", WB_VALUES),
+    "sb": ("Sentence_Break", SB_VALUES),
+    "lb": ("Line_Break", LB_VALUES),
+    "incb": ("InCB", INCB_VALUES),
+    "extpict": ("Extended_Pictographic", None),
+}
 
 
-def _scan_property(prop: str, values: tuple[str, ...]) -> np.ndarray:
-    """Classify every codepoint by regex \\p{prop=value} span scans."""
+def _scan_property(prop: str, values: tuple[str, ...] | None) -> np.ndarray:
+    """Classify every codepoint by regex \\p{prop=value} span scans
+    (a binary property when ``values`` is None)."""
     import regex
 
     all_chars = "".join(
@@ -228,6 +220,11 @@ def _scan_property(prop: str, values: tuple[str, ...]) -> np.ndarray:
     cp_of_index = np.array(
         [c for c in range(MAX_CP) if not (0xD800 <= c <= 0xDFFF)], dtype=np.int64
     )
+    if values is None:
+        table = np.zeros(MAX_CP, dtype=bool)
+        for m in regex.compile(rf"[\p{{{prop}}}]+", regex.V1).finditer(all_chars):
+            table[cp_of_index[m.start() : m.end()]] = True
+        return table
     table = np.zeros(MAX_CP, dtype=np.uint8)  # 0 = values[0] ("Other")
     for vi, value in enumerate(values[1:], start=1):
         pattern = regex.compile(rf"[\p{{{prop}={value}}}]+", regex.V1)
@@ -236,83 +233,51 @@ def _scan_property(prop: str, values: tuple[str, ...]) -> np.ndarray:
     return table
 
 
+def generate_break_tables(out_dir: str = DATA_DIR) -> None:
+    """Regenerate every break-property table into ``out_dir`` (needs
+    ``regex``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for stem, (prop, values) in BREAK_PROPERTIES.items():
+        np.savez_compressed(os.path.join(out_dir, f"{stem}.npz"), t=_scan_property(prop, values))
+
+
 @functools.lru_cache(maxsize=None)
+def _break_table(stem: str) -> np.ndarray:
+    path = os.path.join(DATA_DIR, f"{stem}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} is missing; regenerate with `python -m stringwars_tpu.unicode.tables`"
+        )
+    with np.load(path) as z:
+        return z["t"]
+
+
 def grapheme_break_table() -> np.ndarray:
-    path = _cache_path("gcb")
-    if os.path.exists(path):
-        return np.load(path)["t"]
-    print("generating grapheme-break tables (one-time)...", file=sys.stderr)
-    t = _scan_property("Grapheme_Cluster_Break", GCB_VALUES)
-    np.savez_compressed(path, t=t)
-    return t
+    return _break_table("gcb")
 
 
-@functools.lru_cache(maxsize=None)
 def word_break_table() -> np.ndarray:
-    path = _cache_path("wb")
-    if os.path.exists(path):
-        return np.load(path)["t"]
-    print("generating word-break tables (one-time)...", file=sys.stderr)
-    t = _scan_property("Word_Break", WB_VALUES)
-    np.savez_compressed(path, t=t)
-    return t
+    return _break_table("wb")
 
 
-@functools.lru_cache(maxsize=None)
 def sentence_break_table() -> np.ndarray:
-    path = _cache_path("sb")
-    if os.path.exists(path):
-        return np.load(path)["t"]
-    print("generating sentence-break tables (one-time)...", file=sys.stderr)
-    t = _scan_property("Sentence_Break", SB_VALUES)
-    np.savez_compressed(path, t=t)
-    return t
+    return _break_table("sb")
 
 
-@functools.lru_cache(maxsize=None)
 def extended_pictographic_table() -> np.ndarray:
-    path = _cache_path("extpict")
-    if os.path.exists(path):
-        return np.load(path)["t"]
-    import regex
-
-    print("generating ExtPict table (one-time)...", file=sys.stderr)
-    t = np.zeros(MAX_CP, dtype=bool)
-    all_chars = "".join(chr(c) for c in range(MAX_CP) if not (0xD800 <= c <= 0xDFFF))
-    cp_of_index = np.array(
-        [c for c in range(MAX_CP) if not (0xD800 <= c <= 0xDFFF)], dtype=np.int64
-    )
-    for m in regex.compile(r"[\p{Extended_Pictographic}]+", regex.V1).finditer(all_chars):
-        t[cp_of_index[m.start() : m.end()]] = True
-    np.savez_compressed(path, t=t)
-    return t
+    return _break_table("extpict")
 
 
-@functools.lru_cache(maxsize=None)
 def line_break_table() -> tuple[np.ndarray, tuple[str, ...]]:
     """UAX#14 line-break classes (resolved set used by the pair rules)."""
-    path = _cache_path("lb")
-    values = (
-        "XX", "BK", "CR", "LF", "NL", "SP", "ZW", "WJ", "GL", "BA", "BB",
-        "B2", "HY", "CB", "CL", "CP", "EX", "IN", "NS", "OP", "QU", "IS",
-        "NU", "PO", "PR", "SY", "AI", "AL", "CJ", "EB", "EM", "H2", "H3",
-        "HL", "ID", "JL", "JT", "JV", "RI", "SA", "CM", "ZWJ",
-    )
-    if os.path.exists(path):
-        return np.load(path)["t"], values
-    print("generating line-break tables (one-time)...", file=sys.stderr)
-    t = _scan_property("Line_Break", values)
-    np.savez_compressed(path, t=t)
-    return t, values
+    return _break_table("lb"), LB_VALUES
 
 
-@functools.lru_cache(maxsize=None)
 def incb_table() -> np.ndarray:
     """Indic_Conjunct_Break: 0=None, 1=Extend, 2=Linker, 3=Consonant (GB9c)."""
-    path = _cache_path("incb")
-    if os.path.exists(path):
-        return np.load(path)["t"]
-    print("generating InCB table (one-time)...", file=sys.stderr)
-    t = _scan_property("InCB", ("None", "Extend", "Linker", "Consonant"))
-    np.savez_compressed(path, t=t)
-    return t
+    return _break_table("incb")
+
+
+if __name__ == "__main__":
+    generate_break_tables()
+    print(f"wrote {len(BREAK_PROPERTIES)} break tables to {DATA_DIR}", file=sys.stderr)

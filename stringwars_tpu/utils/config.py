@@ -14,7 +14,7 @@ Recognized variables (see SURVEY.md §5 "Config / flag system"):
   SWTPU_FILTER           regex over variant names (substring fallback)
   SWTPU_TIME             measured wall-time budget, fractional seconds
   SWTPU_WARMUP           warm-up budget, fractional seconds (also soaks JIT compile)
-  SWTPU_BATCH_PER_CORE   batch items per core (1 TPU chip == 1 "core")
+  SWTPU_BATCH_PER_CORE   batch items per device
   SWTPU_CHIPS            chip count override for device-scope sweeps
   SWTPU_COLLISIONS       opt-in hash collision counting
   SWTPU_NDIM / SWTPU_NDIM_SCALES   fingerprint dimensionality sweep

@@ -5,8 +5,8 @@ Layout-compatible with the reference's reporters (``utils.rs:623-714``,
 42-character left-aligned variant-name column, then columns joined by
 ``" | "`` in fixed order — primary rate, bytes/s (when distinct), latency
 percentiles. The reference's Rust-only cyc/B and IPC columns are replaced by
-an optional percent-of-roofline column (TPUs expose achieved HBM bandwidth,
-not perf counters); columns that cannot be computed are omitted, never
+an optional percent-of-peak column (achieved device-memory bandwidth over
+the published peak, ``utils/peaks.py``); columns that cannot be computed are omitted, never
 reformatted.
 
 The *format* (units, SI thresholds, 2-decimal precision, column order) is

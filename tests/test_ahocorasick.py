@@ -61,57 +61,33 @@ def test_ac_byteset_equivalence(rng):
 
 
 def test_ac_pallas_matches_host(rng):
-    """Flat-key rule scan (Pallas, interpret) == native sequential count."""
-    from stringwars_tpu.ops.ahocorasick import Automaton, ac_count_pallas
-
+    """Default staging (many short chunk streams) == native sequential count."""
     hay = rng.integers(97, 103, 20_000, dtype=np.uint8)
     patterns = [b"ab", b"bc", b"abc", b"aa", b"f"]
     a = Automaton(patterns)
-    want = a.count_host(hay)
-    got = ac_count_pallas(a, hay, interpret=True)
-    assert got == want
+    assert ac_count(a, hay) == a.count_host(hay)
 
 
 def test_ac_pallas_byteset_single_bytes(rng):
-    from stringwars_tpu.ops.ahocorasick import Automaton, ac_count_pallas
-
     hay = rng.integers(0, 256, 9_000, dtype=np.uint8)
     charset = b"0123456789"
     a = Automaton([bytes([c]) for c in charset])
     want = int(np.isin(hay, np.frombuffer(charset, np.uint8)).sum())
-    assert ac_count_pallas(a, hay, interpret=True) == want
+    assert ac_count(a, hay) == want
 
 
 def test_ac_lut_and_walk_kernels_agree(rng):
-    """Both Pallas scan kernels (lane-gather LUT and flat-key rule walk)
-    must match the native sequential count on the same automaton."""
-    import jax.numpy as jnp
-
-    from stringwars_tpu.ops.ahocorasick import (
-        Automaton,
-        _ac_scan_pallas,
-        _ac_scan_pallas_lut,
-        automaton_luts,
-        automaton_rules,
-        stage_cols,
-    )
+    """Staged rows scanned on device (the find suite's row) agree with the
+    native count for several chunk widths, including chunks shorter than
+    the longest pattern."""
+    from stringwars_tpu.ops.ahocorasick import ac_count_staged, stage_rows
 
     hay = rng.integers(97, 103, 30_000, dtype=np.uint8)
     a = Automaton([b"ab", b"bca", b"aaaa", b"cb", b"abcabc"])
     want = a.count_host(hay)
     n = hay.shape[0]
-    cols, gpos0, overlap, limit = stage_cols(hay, n, a.max_len)
-    meta = jnp.asarray([n, limit], jnp.int32)
-
-    mode, n_pm, tables = automaton_luts(a)
-    assert mode is not None  # small dict: the LUT must win the cost model
-    got_lut = int(_ac_scan_pallas_lut(tables, meta, cols, gpos0, mode, n_pm, overlap, True))
-    key_rules, oc_rules = automaton_rules(a)
-    got_walk = int(
-        _ac_scan_pallas(
-            jnp.asarray(key_rules.starts), jnp.asarray(key_rules.deltas),
-            jnp.asarray(oc_rules.starts), jnp.asarray(oc_rules.deltas),
-            meta, cols, gpos0, key_rules.count, oc_rules.count, overlap, True,
-        )
-    )
-    assert got_lut == want == got_walk and want > 0
+    got = []
+    for chunk in (3, 64, 1000, None):
+        rows, gpos0, c = stage_rows(hay, n, a.max_len, chunk)
+        got.append(int(ac_count_staged(a, rows, gpos0, n, c)))
+    assert got == [want] * 4 and want > 0

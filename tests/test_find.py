@@ -68,19 +68,15 @@ def test_empty_needle_rejected():
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 13, 16, 33, 61])
 def test_find_pallas_packed(rng, m):
-    """Packed-word Pallas kernel (interpret mode) vs brute force, covering
-    all 4 byte offsets, panel seams, and both capacity buckets."""
-    from stringwars_tpu.ops.find_pallas import StagedHaystack, find_count_pallas
-
+    """Fused shifted-byte compare vs brute force, needles at all 4 byte
+    offsets, in the smallest and a wider capacity bucket."""
     hay = rng.integers(0, 3, 300_000, dtype=np.uint8) + 97  # a-c: dense matches
     hay_b = hay.tobytes()
-    staged = StagedHaystack(hay)
     for start in (0, 1, 2, 3, 1337):
         needle = hay_b[start : start + m]
-        cap = 4 if m <= 13 else 16
-        packed = pack_needle(needle, cap)
         want = len(brute_positions(hay_b, needle))
-        assert find_count_pallas(staged, packed) == want, (m, start)
+        for cap in {4 if m <= 13 else 16, 16}:
+            assert int(find_count(hay, pack_needle(needle, cap))) == want, (m, start, cap)
 
 
 def test_rfind_count_last_position(rng):
@@ -101,17 +97,16 @@ def F_rfind(hay, packed):
 
 
 def test_rfind_pallas_last_position(rng):
-    from stringwars_tpu.ops.find_pallas import StagedHaystack, rfind_pallas
+    """rfind over a longer haystack: the last match sits near the end."""
+    from stringwars_tpu.ops.find import rfind_count
 
     hay = rng.integers(0, 3, 120_000, dtype=np.uint8) + 97
     hay_b = hay.tobytes()
-    staged = StagedHaystack(hay)
     for needle in [hay_b[999:1004], hay_b[-7:], b"qqq"]:
-        packed = pack_needle(needle, 4)
-        count, last = rfind_pallas(staged, packed)
+        count, last = rfind_count(hay, pack_needle(needle, 4))
         want = brute_positions(hay_b, needle)
-        assert count == len(want)
-        assert last == (want[-1] if want else -1)
+        assert int(count) == len(want)
+        assert int(last) == (want[-1] if want else -1)
 
 
 def test_byteset_count_bounded_excludes_padding():
@@ -126,40 +121,28 @@ def test_byteset_count_bounded_excludes_padding():
 
 
 def test_find_pallas_cycle_batch(rng):
-    """One-dispatch needle batch matches per-needle counts."""
-    from stringwars_tpu.ops.find_pallas import NeedleBatch, StagedHaystack, find_count_cycle
-
+    """Cycling needles through one staged haystack (the suite's row)."""
     hay = rng.integers(0, 3, 100_000, dtype=np.uint8) + 97
     hay_b = hay.tobytes()
-    staged = StagedHaystack(hay)
     needles = [hay_b[s : s + m] for s, m in [(0, 3), (11, 5), (202, 8), (303, 13), (47, 1)]]
-    batch = NeedleBatch(staged, [pack_needle(nd, 4) for nd in needles])
-    counts = np.asarray(find_count_cycle(staged, batch))
+    counts = [int(find_count(hay, pack_needle(nd, 4))) for nd in needles]
     want = [len(brute_positions(hay_b, nd)) for nd in needles]
     np.testing.assert_array_equal(counts, want)
 
 
 def test_find_pallas_batch_rejects_mixed_capacity():
-    from stringwars_tpu.ops.find_pallas import NeedleBatch, StagedHaystack
-
-    staged = StagedHaystack(np.zeros(4096, np.uint8))
-    with pytest.raises(ValueError):
-        NeedleBatch(staged, [pack_needle(b"ab", 4), pack_needle(b"cd", 16)])
+    """A needle that does not fit the requested capacity is refused."""
+    with pytest.raises(ValueError, match="exceeds capacity"):
+        pack_needle(b"x" * 14, 4)
 
 
 def test_find_pallas_rejects_oversize_needle():
-    from stringwars_tpu.ops.find import PackedNeedle
-    from stringwars_tpu.ops.find_pallas import HALOW, StagedHaystack, find_count_pallas
-    import jax.numpy as jnp
-
-    staged = StagedHaystack(np.zeros(1024, np.uint8))
-    big = PackedNeedle(
-        words=jnp.zeros((4, HALOW), jnp.uint32),
-        masks=jnp.zeros((4, HALOW), jnp.uint32),
-        length=jnp.int32(4 * HALOW - 3),
-    )
-    with pytest.raises(ValueError):
-        find_count_pallas(staged, big)
+    """Needles past the largest bucket get a capacity of their own."""
+    needle = b"N" * 300
+    packed = pack_needle(needle)
+    assert packed.capacity >= (300 + 6) // 4
+    hay = np.frombuffer(b"a" + needle + b"b" + needle, np.uint8)
+    assert int(find_count(hay, packed)) == 2
 
 
 @pytest.mark.parametrize(
@@ -202,13 +185,12 @@ def test_sharded_rfind_matches_single_chip(rng):
 
 
 def test_sharded_pallas_find_matches_brute(rng):
-    """<Nchip> Pallas panel path: sharded counts/offsets == whole-corpus
-    results (virtual mesh, interpret mode)."""
+    """<Nchip> halo-sharded forward and backward programs == brute force
+    (virtual mesh)."""
     import jax
-    import jax.numpy as jnp
 
     from stringwars_tpu.parallel.mesh import make_mesh
-    from stringwars_tpu.suites.find import make_sharded_find_pallas
+    from stringwars_tpu.suites.find import make_sharded_find
 
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual multi-device mesh")
@@ -216,50 +198,32 @@ def test_sharded_pallas_find_matches_brute(rng):
     hay = rng.integers(97, 100, 9_000, dtype=np.uint8)
     needle = bytes(hay[4_000:4_004])  # present, likely straddles seams too
     packed = pack_needle(needle, 4)
-    w4 = jax.lax.bitcast_convert_type(jnp.asarray(packed.words), jnp.int32)
-    m4 = jax.lax.bitcast_convert_type(jnp.asarray(packed.masks), jnp.int32)
-
+    args = (np.asarray(packed.words), np.asarray(packed.masks), np.asarray(packed.length))
     expected = brute_positions(hay.tobytes(), needle)
-    step, _rows, _inner = make_sharded_find_pallas(
-        scope, hay, hay.shape[0], 4, backward=False, interpret=True
-    )
-    assert int(step(w4, m4, jnp.asarray(packed.length))) == len(expected)
 
-    step_b, _rows, _inner = make_sharded_find_pallas(
-        scope, hay, hay.shape[0], 4, backward=True, interpret=True
-    )
-    count, last = step_b(w4, m4, jnp.asarray(packed.length))
+    step, rows = make_sharded_find(scope, hay, hay.shape[0], 4, backward=False)
+    assert int(step(rows, *args)) == len(expected)
+    step_b, rows = make_sharded_find(scope, hay, hay.shape[0], 4, backward=True)
+    count, last = step_b(rows, *args)
     assert int(count) == len(expected)
     assert int(last) == expected[-1]
 
 
 def test_cp_window_count_matches_oracle(rng):
-    """Codepoint-window Pallas kernel (general uncased-find form) vs the
-    XLA window compare, with matches planted at panel/chunk seams."""
+    """The folded-codepoint window count (uncased find) vs a numpy sliding
+    compare, with matches at the head, the tail, and one truncated at n."""
     import jax.numpy as jnp
 
     from stringwars_tpu.ops.casefold import _window_count
-    from stringwars_tpu.ops.find_pallas import (
-        CP_HALO,
-        CP_PANEL,
-        cp_window_count,
-        stage_cp_rows,
-    )
 
     n, m = 70_000, 8
     cps = rng.integers(0x3B1, 0x3C9, n).astype(np.int32)  # Greek lowercase
     needle = rng.integers(0x3B1, 0x3C9, m).astype(np.int32)
-    # Plant matches straddling the panel seam, at the stream head/tail,
-    # and one truncated at n (must NOT count).
-    for pos in (0, CP_PANEL - 3, 2 * CP_PANEL - m, 1234, n - m + 2, n - m):
+    for pos in (0, 4093, 8184, 1234, n - m + 2, n - m):
         cps[pos : pos + m] = needle[: n - pos]
-    want = int(_window_count(jnp.asarray(cps), jnp.asarray(needle), jnp.int32(n), m))
-    rows, chunk = stage_cp_rows(cps, n)
-    got = int(
-        cp_window_count(
-            jnp.asarray(rows), jnp.asarray(needle),
-            jnp.asarray([n, chunk], jnp.int32), m, True,
-        )
-    )
+    windows = np.lib.stride_tricks.sliding_window_view(cps, m)
+    want = int((windows == needle).all(axis=1).sum())
+    got = int(_window_count(jnp.asarray(cps), jnp.asarray(needle), jnp.int32(n), m))
     assert got == want and want >= 5
-    assert rows.shape[1] - CP_HALO == chunk
+    # Only the first n codepoints count: a match ending past n is dropped.
+    assert int(_window_count(jnp.asarray(cps), jnp.asarray(needle), jnp.int32(n - 1), m)) == want - 1

@@ -65,15 +65,21 @@ def test_ndim_divisibility():
 
 
 def test_fingerprint_pallas_matches_xla(rng):
-    """The Pallas VMEM kernel reproduces the XLA form exactly."""
-    from stringwars_tpu.ops.fingerprint import fingerprint, fingerprint_xla
+    """Batched signatures == the per-token numpy replay, including empty,
+    one-byte and repetitive tokens, at several dim chunkings."""
     from stringwars_tpu.tape import PaddedTokens, Tape
 
     tokens = [
         bytes(rng.integers(32, 127, rng.integers(1, 90), dtype=np.uint8)) for _ in range(40)
     ] + [b"", b"x", b"ab" * 40]
-    toks = PaddedTokens.from_tape(Tape.from_tokens([t or b"\x00" for t in tokens]), align=4)
-    want_h, want_c = fingerprint_xla(toks, ndim=64)
-    got_h, got_c = fingerprint(toks, ndim=64, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_h), np.asarray(want_h))
-    np.testing.assert_array_equal(np.asarray(got_c), np.asarray(want_c))
+    tokens = [t or b"\x00" for t in tokens]
+    toks = PaddedTokens.from_tape(Tape.from_tokens(tokens), align=4)
+    want_h, want_c = fingerprint(toks, ndim=64)
+    for chunk in (4, 16):
+        got_h, got_c = fingerprint(toks, ndim=64, dim_chunk=chunk)
+        np.testing.assert_array_equal(np.asarray(got_h), np.asarray(want_h))
+        np.testing.assert_array_equal(np.asarray(got_c), np.asarray(want_c))
+    for row in list(range(8)) + [len(tokens) - 3, len(tokens) - 2, len(tokens) - 1]:
+        ref_h, ref_c = fingerprint_ref(tokens[row], ndim=64)
+        np.testing.assert_array_equal(np.asarray(want_h)[row], ref_h)
+        np.testing.assert_array_equal(np.asarray(want_c)[row], ref_c)

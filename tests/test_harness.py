@@ -2,6 +2,8 @@
 
 import re
 
+import pytest
+
 from stringwars_tpu.utils.config import compile_filter, parse_size, should_run
 from stringwars_tpu.utils.harness import BenchBudget, WorkUnits, measure_throughput, paced_items, now_ns
 from stringwars_tpu.utils.report import format_byte_rate, format_report_line, format_seconds, format_si_rate
@@ -128,3 +130,14 @@ def test_chained_extra_buffer_carries():
     )
     stats = measure_chained(routine, BenchBudget(warmup_seconds=0, time_seconds=0))
     assert stats.elements == 1
+
+
+def test_peak_table_rejects_unknown_device_kind():
+    """The SoL peak is looked up by exact device_kind; other H100 parts and
+    unknown devices raise instead of defaulting."""
+    from stringwars_tpu.utils.peaks import hbm_peak_bytes_per_second
+
+    assert hbm_peak_bytes_per_second("NVIDIA H100 80GB HBM3") == 3.35e12
+    for kind in ("NVIDIA H100 PCIe", "NVIDIA H100 NVL", "TPU v5 lite", ""):
+        with pytest.raises(KeyError, match="no published memory peak"):
+            hbm_peak_bytes_per_second(kind)

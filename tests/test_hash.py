@@ -2,7 +2,7 @@
 
 import numpy as np
 import pytest
-import xxhash
+xxhash = pytest.importorskip("xxhash")
 
 from stringwars_tpu.ops import wideint as w
 from stringwars_tpu.ops.hash import tree_hash64, xxh32, xxh64, xxh64_multiseed, TREE_CHUNK
@@ -108,13 +108,10 @@ def test_tree_hash_spec_replay():
 
 
 def test_xxh64_pallas_matches(rng):
-    """Pallas stripe kernel == C library (interpret mode; short tokens —
-    interpret cost scales with stripes x the 2048-lane tile)."""
-    from stringwars_tpu.ops.hash import xxh64_pallas
-
+    """xxh64 around the 32-byte stripe edges == C library, two seeds."""
     tokens = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in (0, 3, 31, 32, 33, 64, 95, 100)]
     for seed in (0, 12345):
-        got = xxh64_pallas(_tokens(tokens), seed=seed).to_numpy()
+        got = xxh64(_tokens(tokens), seed=seed).to_numpy()
         want = np.array(
             [xxhash.xxh64_intdigest(t, seed) for t in tokens], dtype=np.uint64
         )
@@ -149,13 +146,14 @@ def test_swh64_collision_quality(rng):
 
 
 def test_bytesum_pallas_matches_host():
-    """Single-pass Pallas bytesum == python sum, odd sizes + padding."""
-    from stringwars_tpu.ops.bytesum import bytesum_words_pallas
+    """u32-word bytesum (the hash suite's checksum row) == python sum, odd
+    sizes + padding."""
+    from stringwars_tpu.ops.bytesum import bytesum_words
 
     rng = np.random.default_rng(3)
     for n in (1, 17, 8191, 8192, 100_000):
         data = rng.integers(0, 256, n, dtype=np.uint8)
         padded = np.zeros(-(-n // 4) * 4, np.uint8)
         padded[:n] = data
-        got = bytesum_words_pallas(padded.view("<u4"), n, interpret=True)
+        got = bytesum_words(padded.view("<u4"), n)
         assert got == int(data.sum()), n

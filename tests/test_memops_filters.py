@@ -11,7 +11,6 @@ from stringwars_tpu.ops.memops import (
     fill_random,
     invert_case_lut,
     lut_translate,
-    lut_translate_planes,
     move,
 )
 from stringwars_tpu.tape import PaddedTokens, Tape
@@ -22,7 +21,10 @@ def test_lut_translate(rng):
     lut = rng.integers(0, 256, 256, dtype=np.uint8)
     want = lut[data]
     np.testing.assert_array_equal(np.asarray(lut_translate(data, lut)), want)
-    np.testing.assert_array_equal(np.asarray(lut_translate_planes(data, lut)), want)
+    # Identity and constant tables.
+    ident = np.arange(256, dtype=np.uint8)
+    np.testing.assert_array_equal(np.asarray(lut_translate(data, ident)), data)
+    np.testing.assert_array_equal(np.asarray(lut_translate(data, np.full(256, 7, np.uint8))), 7)
 
 
 def test_invert_case():

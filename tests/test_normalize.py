@@ -228,29 +228,20 @@ def test_stream_starter_rows_zalgo_raises():
 @pytest.mark.parametrize("compat", [False, True])
 @pytest.mark.parametrize("width", [32, 64])
 def test_decompose_rows_fused_engine(compat, width):
-    """Width-32/64 starter-cut rows ride the fused expand-compact engine
-    (LUT decompose + in-kernel compaction); its output must match
-    unicodedata exactly. Hangul NFD and ⅷ->"viii" NFKD exercise the
-    4th expansion channel; ㌀-style long compat expansions (> 4, cp >=
-    0x321D) must fall back (covered by the width-256 staged test
-    above)."""
+    """Width-32/64 starter-cut rows (the suite's staging) decompose
+    exactly like unicodedata. Hangul NFD and ⅷ->"viii" NFKD exercise the
+    4th expansion channel."""
     import unicodedata
 
-    from stringwars_tpu.ops.normalize import (
-        _decomp_fused_tables,
-        decompose_rows,
-        stream_starter_rows,
-    )
+    from stringwars_tpu.ops.normalize import decompose_rows, stream_starter_rows
 
     rng = np.random.default_rng(11)
-    # NFKD's fused envelope tops out at U+321C (first longer compat
-    # expansion is U+321D); Hangul syllables ride only the NFD side.
+    # Hangul syllables on the NFD side, compat forms on the NFKD side.
     pool = ["é", "Å", "ñ", "ё", "й", "ü", "ø", "a", "Z", " ", "α", "ΐ", "ṩ", "q̣̇", "ẍ̧", "Ω"]
     pool += ["①", "²", "ǆ", "ⅷ", "½", "℀"] if compat else ["가", "각", "한", "ᾂ"]
     text = "".join(pool[int(i)] for i in rng.integers(0, len(pool), 2500))
     cps = np.array([ord(c) for c in text], np.int32)
     max_cp = int(cps.max())
-    assert _decomp_fused_tables(compat, max_cp) is not None  # engine hit
     rows, lengths = stream_starter_rows(cps, width=width)
     out, counts = decompose_rows(
         jnp.asarray(rows), jnp.asarray(lengths), compat, max_cp=max_cp

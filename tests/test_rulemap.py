@@ -1,4 +1,5 @@
-"""Gather-free rule maps vs the dense tables they were compiled from."""
+"""Rule maps (dense gathers / boundary binary search) vs the dense
+tables they were compiled from and the per-rule oracle."""
 
 import numpy as np
 import pytest
@@ -11,8 +12,10 @@ from stringwars_tpu.ops.rulemap import (
     compile_steps,
     expand_steps,
     range_map,
+    range_map_ref,
     step_map,
 )
+from stringwars_tpu.ops import rulemap
 from stringwars_tpu.unicode import tables
 
 
@@ -26,7 +29,11 @@ def test_step_rules_roundtrip(table_fn):
     np.testing.assert_array_equal(expand_steps(rules, table.shape[0]), table)
 
 
-def test_step_map_kernel_matches_gather(rng):
+@pytest.mark.parametrize("dense_max", [rulemap._DENSE_MAX, 1024])
+def test_step_map_kernel_matches_gather(rng, monkeypatch, dense_max):
+    """Both evaluators: the dense-table gather and, when the table would
+    exceed the dense limit, the binary search over run starts."""
+    monkeypatch.setattr(rulemap, "_DENSE_MAX", dense_max)
     table = np.asarray(tables.word_break_table())
     rules = compile_steps(table)
     cps = np.concatenate(
@@ -36,7 +43,7 @@ def test_step_map_kernel_matches_gather(rng):
             rules.starts[rng.integers(0, rules.count, 500)],  # exact boundaries
         ]
     ).astype(np.int32)
-    got = np.asarray(step_map(cps, rules, interpret=True))
+    got = np.asarray(step_map(cps, rules))
     np.testing.assert_array_equal(got, table[cps])
 
 
@@ -44,11 +51,13 @@ def test_step_prune_exact_below_bound(rng):
     table = np.asarray(tables.grapheme_break_table())
     rules = compile_steps(table).prune(0x2FFF)
     cps = rng.integers(0, 0x3000, 4000).astype(np.int32)
-    got = np.asarray(step_map(cps, rules, interpret=True))
+    got = np.asarray(step_map(cps, rules))
     np.testing.assert_array_equal(got, table[cps])
 
 
-def test_fold_rules_match_inline_table(rng):
+@pytest.mark.parametrize("dense_max", [rulemap._DENSE_MAX, 1024])
+def test_fold_rules_match_inline_table(rng, monkeypatch, dense_max):
+    monkeypatch.setattr(rulemap, "_DENSE_MAX", dense_max)
     inline, _multi, _pool = tables.casefold_tables()
     rules = compile_fold(inline)
     cps = np.concatenate(
@@ -60,7 +69,7 @@ def test_fold_rules_match_inline_table(rng):
             np.arange(0x400, 0x460),  # Cyrillic
         ]
     ).astype(np.int32)
-    got = np.asarray(range_map(cps, rules, interpret=True))
+    got = np.asarray(range_map(cps, rules))
     # The rules fold everything the inline table folds; multi-escape slots
     # (inline < 0) stay identity here (handled by the expansion value maps).
     want = np.where(inline[cps] >= 0, inline[cps], cps)
@@ -68,12 +77,14 @@ def test_fold_rules_match_inline_table(rng):
 
 
 def test_fold_rules_xla_path_matches(rng):
+    """The per-rule oracle agrees with the table and with ``range_map``."""
     inline, _multi, _pool = tables.casefold_tables()
     rules = compile_fold(inline)
     cps = rng.integers(0, 0x1000, 3000).astype(np.int32)
-    got = np.asarray(range_map(cps, rules))  # CPU backend -> unrolled XLA path
+    got = np.asarray(range_map_ref(cps, rules))
     want = np.where(inline[cps] >= 0, inline[cps], cps)
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.asarray(range_map(cps, rules)), want)
 
 
 def test_sparse_value_map(rng):
@@ -81,7 +92,7 @@ def test_sparse_value_map(rng):
     vals = np.asarray([7, 9, 11, 13], np.int64)
     rules = compile_sparse_values(keys, vals)
     cps = np.concatenate([keys, rng.integers(0, 0x20000, 2000)]).astype(np.int32)
-    got = np.asarray(range_map(cps, rules, interpret=True))
+    got = np.asarray(range_map(cps, rules))
     want = np.zeros_like(cps)
     for k, v in zip(keys, vals):
         want[cps == k] = v

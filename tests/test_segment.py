@@ -2,7 +2,7 @@
 
 import numpy as np
 import pytest
-import regex
+regex = pytest.importorskip("regex")
 
 from stringwars_tpu.ops.segment import (
     grapheme_clusters,

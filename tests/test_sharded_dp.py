@@ -1,22 +1,18 @@
-"""Sharded Pallas DP engines on the virtual mesh (the <Nchip> production
-path of ``suites/similarities.py``): the staged batch-tile axis shards
-under ``shard_map`` and per-pair results survive the seams bit-exactly.
+"""Sharded DP engines on the virtual mesh (the <Nchip> rows of
+``suites/similarities.py``): the pair batch splits across devices under
+``shard_map`` and per-pair results survive the seams bit-exactly.
 
 Reference scope sweeps: ``similarities/bench.rs:376-399``.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.sharding import PartitionSpec as P
-from jax import shard_map
 
 from stringwars_tpu.ops import similarity as S
-from stringwars_tpu.ops.affine_pallas import affine_from_tokens, _affine
-from stringwars_tpu.ops.myers_pallas import myers_from_tokens, _myers
-from stringwars_tpu.parallel.mesh import SHARD_AXIS, make_mesh
-from stringwars_tpu.suites.similarities import shard_tiles
+from stringwars_tpu.ops.myers_pallas import myers_from_tokens
+from stringwars_tpu.parallel.mesh import make_mesh
+from stringwars_tpu.suites.similarities import make_sharded_scorer, myers_scorer
 
 
 def _tokens(rng, n, lo, hi):
@@ -30,29 +26,12 @@ def scope():
     return make_mesh(4)
 
 
-def _tile_spec(x):
-    return P(SHARD_AXIS, *([None] * (x.ndim - 1)))
-
-
 def test_sharded_gotoh_matches_oracle(rng, scope):
-    # > 1 tile per device: 4 devices x 2 tiles of 1024 pairs... interpret
-    # mode is slow, so keep ONE tile per device (4096 pairs padded) and
-    # short sequences.
+    # 40 pairs over 4 devices: the batch pads to a multiple of the mesh.
     n = 40
     ta, tb = _tokens(rng, n, 1, 13), _tokens(rng, n, 1, 13)
-    ab = affine_from_tokens(ta, tb)
-    consts = tuple(shard_tiles(scope, (ab.a_chars, ab.rb_pad, ab.alen, ab.blen)))
-
-    def run(a_chars, rb_pad, alen, blen):
-        return _affine(a_chars, rb_pad, alen, blen, ab.A, ab.L, 2, -1, -5, -1, False, True)
-
-    step = shard_map(
-        run, mesh=scope.mesh,
-        in_specs=tuple(_tile_spec(c) for c in consts),
-        out_specs=P(SHARD_AXIS, None, None),
-        check_vma=False,
-    )
-    got = np.asarray(jax.jit(step)(*consts)).reshape(-1)[:n]
+    step = make_sharded_scorer(scope, S.pack_pairs(ta, tb), S.nw_score_affine)
+    got = np.asarray(step()).reshape(-1)[:n]
     for i in range(n):
         want = S.nw_ref(list(ta[i]), list(tb[i]), match=2, mismatch=-1, go=-5, ge=-1)
         assert got[i] == want, (i, got[i], want)
@@ -61,25 +40,7 @@ def test_sharded_gotoh_matches_oracle(rng, scope):
 def test_sharded_myers_matches_oracle(rng, scope):
     n = 40
     ta, tb = _tokens(rng, n, 1, 13), _tokens(rng, n, 1, 13)
-    mb = myers_from_tokens(ta, tb)
-    consts = tuple(
-        shard_tiles(scope, (mb.bp, mb.b_cols, mb.blen, mb.lastw, mb.lastr, mb.alen))
-    )
-
-    def run(bp, b_cols, blen, lastw, lastr, alen):
-        return _myers(bp, b_cols, blen, lastw, lastr, alen, mb.n_words, mb.nbits, True,
-                      last_word=mb.last_word)
-
-    step = shard_map(
-        run, mesh=scope.mesh,
-        in_specs=tuple(_tile_spec(c) for c in consts),
-        out_specs=P(SHARD_AXIS, None, None),
-        check_vma=False,
-    )
-    got = np.asarray(jax.jit(step)(*consts)).reshape(-1)[:n]
-    alen = mb._np_alen[:n]
-    blen = mb._np_blen[:n]
-    got = np.where(alen == 0, blen, got)
+    got = np.asarray(myers_scorer(scope, myers_from_tokens(ta, tb), interpret=True)()).reshape(-1)[:n]
     for i in range(n):
         want = S.levenshtein_ref(ta[i], tb[i])
         assert got[i] == want, (i, got[i], want)

@@ -21,7 +21,7 @@ import unicodedata
 
 import numpy as np
 import pytest
-import regex
+regex = pytest.importorskip("regex")
 
 from stringwars_tpu.ops.segment import grapheme_clusters
 from stringwars_tpu.unicode import tables

@@ -2,7 +2,7 @@
 
 import numpy as np
 import pytest
-import xxhash
+xxhash = pytest.importorskip("xxhash")
 
 from stringwars_tpu.ops.xxh3 import KSECRET, prepare3, xxh3_64
 from stringwars_tpu.tape import PaddedTokens, Tape
